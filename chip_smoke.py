@@ -5,14 +5,29 @@
 Phases (any failure exits nonzero and prints no result line):
   1. the card: nvidia-smi name and power limit, torch's device name
   2. build the hand-written kernel (csrc/morphology.cu) with nvcc
-  3. kernel == its plain PyTorch version, bit for bit, on the card
-  4. the port's main path: HairFast(HairFastConfig()).swap on three distinct
-     seeded 1024^2 images, random full-width zoo in bf16; the kernel's launch
-     count over that swap; a zero-noise f32 run; and the slice at 128^2 on
-     the card against the same slice on the CPU
-  5. times with CUDA events: swap p50 (bf16, B=1), kernel vs plain, peak memory
+  3. kernel == its plain PyTorch version, bit for bit, on the card: the
+     swap's masks at B=1, 8 and 4 triples, and the Poisson composite's
+     [B,1024,1024,1] x 30 and the --micro CLI's [1,128,128,1] x 30
+  4. the port's main path: HairFast(HairFastConfig()).warmup, then .swap on
+     three distinct seeded 1024^2 images, random full-width zoo in bf16; the
+     kernel's launch count over each; a zero-noise f32 run; and the slice at
+     128^2 on the card against the same slice on the CPU
+  5. times with CUDA events: swap p50 (bf16, B=1), kernel vs plain at both
+     shapes, peak memory
   6. where the swap's time goes: stage p50 (CUDA events), host enqueue time,
      torch.profiler's device events, busy time and top kernels per swap
+  7. swap_tensor's host steps (coercion, equal_replacer, upload) timed apart
+  8. the serving surface at full width in bf16: uint8 and output_res=512
+     against the float path, upload_res=512, poisson=True (the composite's
+     time and launches), swap_batch at B=8 (transfers/s, peak memory, rows
+     against B=1 in f32), swap_stream over 8 PNG triples, a save_all dump
+  9. full-width STAR: landmarks on the card against the CPU, the
+     confidence gate raising, an aligned 1500x1200 photo through swap
+ 10. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
+     subprocess on the card
+Every path is run with the kernel's launch count set to 0 just before it
+and read just after; a path that did not launch the kernel fails the run,
+and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
 The line before the last is the kernel report (JSON); the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
@@ -20,17 +35,43 @@ The line before the last is the kernel report (JSON); the last line is
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
+
+LAUNCHES = {}  # path -> dilate_erode launches while it ran
+CHECKED = set()  # (shape, dtype, iterations) phase 3 held bit for bit
+SEEN = set()  # (shape, dtype, iterations) the kernel launched at, any phase
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_key(mask, iterations: int) -> tuple:
+    return tuple(mask.shape), str(mask.dtype).split(".")[-1], iterations
+
+
+def record_shapes() -> None:
+    """Wrap the kernel's launch so that every (shape, dtype, iterations) it
+    runs at lands in SEEN; main() fails unless phase 3 checked each one."""
+    from hairfastgan_torch.ops import morphology as M
+
+    launch = M._launch
+
+    def recorded(mask, iterations):
+        out = launch(mask, iterations)
+        SEEN.add(kernel_key(mask, iterations))
+        return out
+
+    M._launch = recorded
 
 
 def card_info() -> str:
@@ -40,6 +81,20 @@ def card_info() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def counted(path: str, fn, at_least: int = 1):
+    """Run fn with the kernel's launch count set to 0, record the count
+    under `path`, and fail unless the kernel launched at least `at_least`
+    times."""
+    from hairfastgan_torch.ops import morphology as M
+
+    M.dilate_erode.launches = 0
+    out = fn()
+    LAUNCHES[path] = n = M.dilate_erode.launches
+    if n < at_least:
+        raise AssertionError(f"{path}: dilate_erode launched {n} times, expected >= {at_least}")
+    return out
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -71,8 +126,8 @@ def device_us(fn, n: int) -> float:
 
 
 def test_masks(shape, seed: int):
-    """Random binary masks plus all-zero, all-one, single-pixel and
-    border-pixel masks, each [B,H,W,1]."""
+    """Random binary masks plus all-zero, all-one, single-pixel,
+    border-pixel, disc and sparse masks, each [B,H,W,1]."""
     b, h, w, _ = shape
     rng = np.random.default_rng(seed)
     cases = {"random": (rng.random(shape) > 0.5).astype(np.float32),
@@ -81,7 +136,11 @@ def test_masks(shape, seed: int):
     pixel[:, h // 2, w // 3] = 1
     border = np.zeros(shape, np.float32)
     border[:, 0, 5] = border[:, h - 1, w - 1] = border[:, 7, 0] = 1
-    cases.update(pixel=pixel, border=border)
+    yy, xx = np.mgrid[:h, :w]
+    disc = ((yy - h / 2) ** 2 + (xx - w / 3) ** 2 < (min(h, w) / 3) ** 2).astype(np.float32)
+    sparse = (rng.random(shape) > 0.9995).astype(np.float32)
+    cases.update(pixel=pixel, border=border, disc=np.broadcast_to(disc[..., None], shape).copy(),
+                 sparse=sparse)
     return cases
 
 
@@ -93,11 +152,16 @@ def phase_kernel(device) -> float:
 
     worst = 0.0
     n = 0
-    shapes = [(3, 256, 256, 1), (1, 256, 256, 1), (2, 37, 300, 1)]  # last: ragged tiles
-    for si, shape in enumerate(shapes):
+    # the swap's masks at 1/3/5 iterations, the composite's 1024^2 masks at
+    # 30, ragged tiles (37 rows, 300 and 3000 columns), swap_batch B=8's and
+    # swap_stream batch 4's masks, and the --micro CLI's 128^2 composite
+    shapes = {(3, 256, 256, 1): (1, 3, 5), (1, 256, 256, 1): (1, 3, 5), (2, 37, 300, 1): (1, 3, 5),
+              (1, 1024, 1024, 1): (30,), (2, 1024, 1024, 1): (30,), (1, 37, 3000, 1): (30,),
+              (24, 256, 256, 1): (5,), (12, 256, 256, 1): (5,), (1, 128, 128, 1): (30,)}
+    for si, (shape, iter_list) in enumerate(shapes.items()):
         for name, m in test_masks(shape, seed=si).items():
             for dtype in (torch.float32, torch.bfloat16):
-                for iters in (1, 3, 5):
+                for iters in iter_list:
                     x = torch.from_numpy(m).to(device=device, dtype=dtype)
                     d, e = M.dilate_erode(x, iters)
                     d_ref, e_ref = M.dilate_erode_reference(x, iters)
@@ -110,15 +174,16 @@ def phase_kernel(device) -> float:
                     if d.dtype != dtype or not d.is_cuda:
                         raise AssertionError(f"kernel output {d.dtype} on {d.device}")
                     worst = max(worst, err)
+                    CHECKED.add(kernel_key(x, iters))
                     n += 1
-    log(f"[kernel] {n} cases equal bit for bit (shapes {shapes}, f32+bf16, iters 1/3/5)")
-    wide = torch.zeros((1, 8, 60000, 1), device=device)  # rows over the shared memory
+    log(f"[kernel] {n} cases equal bit for bit (shape: iterations {shapes}, f32+bf16)")
+    x = torch.zeros((1, 64, 64, 1), device=device)
     try:
-        M.dilate_erode(wide, 5)
+        M.dilate_erode(x, 257)  # over the kernel's 256-iteration limit
     except RuntimeError as e:
-        log(f"[kernel] too wide a mask raises: {e}")
+        log(f"[kernel] 257 iterations raise: {e}")
     else:
-        raise AssertionError("the kernel took a [1,8,60000,1] mask")
+        raise AssertionError("the kernel took 257 iterations")
     x = torch.from_numpy(test_masks((1, 256, 256, 1), seed=5)["random"]).to(device)
     if not all(map(torch.equal, M.dilate_erode(x, 5), M.dilate_erode_reference(x, 5))):
         raise AssertionError("the kernel disagrees after a refused launch")
@@ -130,7 +195,6 @@ def phase_main(device, card: str):
 
     from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
     from hairfastgan_torch.api import HairFast
-    from hairfastgan_torch.ops import morphology as M
     from hairfastgan_torch.pipeline.swap import hair_fast
     from hairfastgan_torch.zoo import init_zoo
 
@@ -146,13 +210,16 @@ def phase_main(device, card: str):
     rng = np.random.default_rng(3407)
     imgs = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(3)]
 
-    M.dilate_erode.launches = 0
     t0 = time.perf_counter()
-    out = hf.swap(*imgs, seed=3407)
+    counted("warmup", hf.warmup)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = counted("swap", lambda: hf.swap(*imgs, seed=3407), at_least=2)
     first_s = time.perf_counter() - t0
-    launches = M.dilate_erode.launches
-    log(f"[main] swap (first call, includes cuDNN algorithm picks): {first_s:.2f} s; "
-        f"dilate_erode launches during the swap: {launches}")
+    launches = LAUNCHES["swap"]
+    log(f"[main] warmup() (first swap of zero images: kernel loads, cuDNN picks): "
+        f"{warm_s:.2f} s; the first request after it: {first_s:.2f} s; dilate_erode "
+        f"launches during the warmup {LAUNCHES['warmup']}, during the swap {launches}")
     if out.shape != (size, size, 3) or out.dtype != np.float32:
         raise AssertionError(f"swap returned {out.shape} {out.dtype}")
     if not (np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
@@ -180,7 +247,7 @@ def phase_main(device, card: str):
     log(f"[main] zero-noise f32 swap finite; bf16 vs f32 |diff| max "
         f"{bf16_vs_f32.max().item():.5f} mean {bf16_vs_f32.mean().item():.6f}")
     torch.backends.cudnn.allow_tf32 = True
-    del hf32, f32, b16
+    del f32, b16
 
     # the slice at 128^2 (random zoo at that config): card vs the CPU path,
     # which the Tier-1 tests hold against the JAX package
@@ -199,7 +266,7 @@ def phase_main(device, card: str):
     log(f"[main] 128^2 slice, card vs CPU (f32, TF32 off): max |diff| {small_err:.2e}")
     if small_err > 1e-3:
         raise AssertionError(f"card and CPU disagree at 128^2: {small_err}")
-    return hf, imgs, launches
+    return hf, hf32, imgs, launches
 
 
 def _leaves(tree):
@@ -224,6 +291,7 @@ def phase_times(hf, imgs, device, card: str):
         hf.swap_tensor(*imgs, seed=3407)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 2 ** 30  # both zoos, held for phase 8
     dev_ms, host_ms = [], []
     for i in range(10):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -239,23 +307,29 @@ def phase_times(hf, imgs, device, card: str):
     p50 = statistics.median(dev_ms)
     log(f"[times] swap bf16 B=1 p50 {p50:.2f} ms (CUDA events, 10 runs; min "
         f"{min(dev_ms):.2f} max {max(dev_ms):.2f}); host wall incl. result copy p50 "
-        f"{statistics.median(host_ms):.2f} ms; peak memory {peak:.2f} GiB  [{card}]")
+        f"{statistics.median(host_ms):.2f} ms; peak memory {peak:.2f} GiB, of which "
+        f"{resident:.2f} GiB resident before the swaps (the bf16 and f32 zoos)  [{card}]")
 
     rows = {}
-    masks = test_masks((3, 256, 256, 1), seed=11)["random"]
-    for dtype in (torch.bfloat16, torch.float32):
+    # the swap's masks (5 iterations) and the composite's (1024^2, 30, f32)
+    for shape, iters, dtype in (((3, 256, 256, 1), 5, torch.bfloat16),
+                                ((3, 256, 256, 1), 5, torch.float32),
+                                ((1, 1024, 1024, 1), 30, torch.float32)):
+        masks = test_masks(shape, seed=11)["random" if iters == 5 else "sparse"]
         x = torch.from_numpy(masks).to(device=device, dtype=dtype)
-        kern = lambda: M.dilate_erode(x, 5)  # noqa: E731
-        plain = lambda: M.dilate_erode_reference(x, 5)  # noqa: E731
+        kern = lambda: M.dilate_erode(x, iters)  # noqa: E731
+        plain = lambda: M.dilate_erode_reference(x, iters)  # noqa: E731
+        n = 200 if iters == 5 else 50
         for f in (kern, plain):
-            cuda_ms(f, 20)  # warm-up
-        p1, k1, k2, p2 = (cuda_ms(f, 200) for f in (plain, kern, kern, plain))
-        rows[str(dtype).split(".")[-1]] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"[times] dilate_erode [3,256,256,1] {dtype} iters=5, per call with its "
+            cuda_ms(f, 10)  # warm-up
+        p1, k1, k2, p2 = (cuda_ms(f, n) for f in (plain, kern, kern, plain))
+        kd, pd = device_us(kern, 50), device_us(plain, 10)
+        rows[(shape, iters, str(dtype).split(".")[-1])] = ((k1 + k2) / 2, (p1 + p2) / 2, kd, pd)
+        log(f"[times] dilate_erode {list(shape)} {dtype} iters={iters}, per call with its "
             f"launch overhead: kernel {(k1 + k2) / 2 * 1e3:.1f} us, plain "
             f"{(p1 + p2) / 2 * 1e3:.1f} us (order plain,kernel,kernel,plain: "
             f"{p1*1e3:.1f} {k1*1e3:.1f} {k2*1e3:.1f} {p2*1e3:.1f}); device-only: kernel "
-            f"{device_us(kern, 50):.1f} us, plain {device_us(plain, 50):.1f} us  [{card}]")
+            f"{kd:.1f} us, plain {pd:.1f} us  [{card}]")
     return p50, peak, rows
 
 
@@ -318,6 +392,266 @@ def phase_breakdown(hf, imgs, device, card: str) -> None:
         log(f"[breakdown]   {us / 3 / 1e3:7.3f} ms/swap {100 * us / total:5.1f}%  {name[:110]}")
 
 
+def phase_host_steps(hf, imgs, device, card: str) -> None:
+    """swap_tensor's host steps timed apart (p50 over 10 runs each): coercion
+    (to_image_u8), equal_replacer, the upload (to the device, synchronized),
+    and the rest (hair_fast on the device, synchronized); for the uint8
+    arrays of phase 5 and for the same images as PNG paths."""
+    import torch
+    from PIL import Image
+
+    from hairfastgan_torch.api import equal_replacer, to_image_u8
+    from hairfastgan_torch.pipeline.swap import hair_fast, swap_cases
+
+    size = hf.cfg.stylegan.size
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, im in enumerate(imgs):
+            paths.append(Path(d) / f"{i}.png")
+            Image.fromarray(im).save(paths[-1])
+        for label, inputs in (("uint8 arrays", imgs), ("PNG paths", paths)):
+            ms = collections.defaultdict(list)
+            for i in range(10):
+                torch.cuda.synchronize()
+                t = [time.perf_counter()]
+                u8 = [to_image_u8(im, size) for im in inputs]
+                t.append(time.perf_counter())
+                rep = equal_replacer(u8)
+                t.append(time.perf_counter())
+                face, shape, color = hf._upload(rep)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                with torch.inference_mode():
+                    hair_fast(hf.zoo, face, shape, color, case=swap_cases(*rep), cfg=hf.cfg,
+                              dtype=hf.dtype, generator=hf._generator(3407 + i))
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                hf.swap_tensor(*inputs, seed=3407 + i)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                for k, a, b in zip(("coerce", "equal_replacer", "upload", "hair_fast",
+                                    "swap_tensor"), t, t[1:]):
+                    ms[k].append((b - a) * 1e3)
+            p50 = {k: round(statistics.median(v), 3) for k, v in ms.items()}
+            steps = sum(p50[k] for k in ("coerce", "equal_replacer", "upload", "hair_fast"))
+            log(f"[host] swap_tensor steps, {label}, p50 ms (host clock, synchronized): {p50}; "
+                f"sum of the steps {steps:.3f} vs swap_tensor {p50['swap_tensor']:.3f}  [{card}]")
+
+
+def phase_serving(hf, hf32, imgs, device, card: str) -> dict:
+    """The serving surface at full width in bf16 on phase 4's zoo."""
+    import torch
+
+    from hairfastgan_torch.api import HairFast
+    from hairfastgan_torch.ops.resample import bicubic_downsample
+    from hairfastgan_torch.pipeline.composite import poisson_composite
+    from hairfastgan_torch.pipeline.swap import hair_fast
+
+    out = {}
+    size = hf.cfg.stylegan.size
+    half_res = size // 2  # 512 at full width
+    # uint8 and output_res=512 against the float path
+    f = counted("swap float", lambda: hf.swap(*imgs, seed=1), at_least=2)
+    u8 = counted("swap uint8", lambda: hf.swap(*imgs, seed=1, output="uint8"), at_least=2)
+    lsb = int(np.abs(u8.astype(np.int16) - np.clip(f * 255 + 0.5, 0, 255).astype(np.int16)).max())
+    half = counted("swap output_res=512", lambda: hf.swap(*imgs, seed=1, output_res=half_res),
+                   at_least=2)
+    ref = bicubic_downsample(torch.from_numpy(f).to(device).permute(2, 0, 1), 2)
+    half_err = (torch.from_numpy(half).to(device) - ref.permute(1, 2, 0)).abs().max().item()
+    log(f"[serving] uint8 vs the rounded float output: max {lsb} step(s); output_res={half_res} "
+        f"{half.shape} vs the float output downsampled in f32: max |diff| {half_err:.5f}")
+    if (u8.dtype != np.uint8 or lsb > 1 or half.shape != (half_res, half_res, 3)
+            or half_err > 0.02):
+        raise AssertionError(f"uint8 / output_res disagree: {u8.dtype} {lsb} {half.shape} {half_err}")
+    up = counted("swap upload_res=512",
+                 lambda: hf.swap(*imgs, seed=1, upload_res=half_res, output="uint8"), at_least=2)
+    up_diff = np.abs(up.astype(np.int16) - u8.astype(np.int16))
+    log(f"[serving] upload_res={half_res}: {up.shape} {up.dtype}; vs full upload mean |diff| "
+        f"{up_diff.mean():.3f} u8 steps, max {up_diff.max()}")
+    if up.shape != (size, size, 3):
+        raise AssertionError(f"upload_res={half_res} gave {up.shape}")
+
+    # poisson=True: the swap plus the composite (BiSeNet x2 at 1024^2, the
+    # kernel at [1,1024,1024,1] x 30, 4 x 115 Jacobi sweeps)
+    pois = counted("swap poisson=True", lambda: hf.swap(*imgs, seed=1, poisson=True), at_least=3)
+    if pois.shape != (size, size, 3) or not np.isfinite(pois).all():
+        raise AssertionError(f"poisson swap gave {pois.shape}")
+    final = hf.swap_tensor(*imgs, seed=1)[None].float()
+    face01 = torch.from_numpy(imgs[0])[None].to(device).float() / 255.0
+    comp_ms = []
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.inference_mode():
+            poisson_composite(hf.zoo, final, face01)
+        end.record()
+        torch.cuda.synchronize()
+        comp_ms.append(start.elapsed_time(end))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.inference_mode():
+        poisson_composite(hf.zoo, final, face01)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["composite"] = (statistics.median(comp_ms[1:]), len(dev),
+                        sum(e.device_time for e in dev) / 1e3)
+    log(f"[serving] poisson=True: output finite in [{pois.min():.4f}, {pois.max():.4f}]; "
+        f"poisson_composite p50 {out['composite'][0]:.2f} ms (CUDA events, 3 runs after one), "
+        f"{len(dev)} device kernels, {out['composite'][2]:.2f} ms device busy  [{card}]")
+
+    # swap_batch at B=8: transfers/s, peak memory
+    rng = np.random.default_rng(8)
+    trip8 = [rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8) for _ in range(3)]
+    counted("swap_batch B=8", lambda: hf.swap_batch(*trip8, output="uint8"), at_least=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 2 ** 30
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = hf.swap_batch(*trip8, output="uint8")
+        wall.append(time.perf_counter() - t0)
+    peak8 = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    out["batch8"] = (8 / statistics.median(wall), statistics.median(wall) * 1e3, peak8)
+    log(f"[serving] swap_batch B=8 uint8: {res.shape} in p50 {out['batch8'][1]:.1f} ms (host "
+        f"wall incl. upload and result copy, 3 runs after one): {out['batch8'][0]:.2f} "
+        f"transfers/s; peak memory {peak8:.2f} GiB, of which {resident:.2f} GiB resident "
+        f"before  [{card}]")
+    # rows of B=8 against B=1 of the same triple: zero noise, f32, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    t8 = [torch.from_numpy(a).to(device) for a in trip8]
+    with torch.inference_mode():
+        b8 = hair_fast(hf32.zoo, *t8, cfg=hf32.cfg, dtype=torch.float32)
+        rows = [(b8[j] - hair_fast(hf32.zoo, *(t[j:j + 1] for t in t8), cfg=hf32.cfg,
+                                   dtype=torch.float32)[0]).abs().max().item() for j in (0, 7)]
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[serving] B=8 rows 0 and 7 vs B=1 runs (zero noise, f32, TF32 off): max |diff| "
+        f"{rows[0]:.3e}, {rows[1]:.3e}")
+    if max(rows) > 1e-3:
+        raise AssertionError(f"B=8 rows differ from B=1: {rows}")
+    del b8, t8
+
+    # swap_stream over 8 PNG triples in a temp directory
+    with tempfile.TemporaryDirectory() as d:
+        from PIL import Image
+
+        files = []
+        for i in range(6):
+            files.append(Path(d) / f"{i}.png")
+            Image.fromarray(trip8[i % 3][i]).save(files[-1])
+        triples = [(files[i % 6], files[(i + 1) % 6], files[(i + 2) % 6]) for i in range(8)]
+        t0 = time.perf_counter()
+        got = counted("swap_stream", lambda: list(hf.swap_stream(
+            triples, depth=2, output="uint8", batch=4)), at_least=2)
+        stream_s = time.perf_counter() - t0
+    if [i for i, _ in got] != list(range(8)) or any(
+            r is None or r.shape != (size, size, 3) for _, r in got):
+        raise AssertionError("swap_stream gave the wrong results")
+    out["stream"] = 8 / stream_s
+    log(f"[serving] swap_stream: 8 triples (batch 4, depth 2) in {stream_s:.2f} s, "
+        f"{out['stream']:.2f} triples/s incl. decode; loader: {hf.stream_loader}  [{card}]")
+
+    # one save_all dump
+    with tempfile.TemporaryDirectory() as d:
+        cfg = dataclasses.replace(hf.cfg, save_all=True, save_all_dir=Path(d))
+        dbg = HairFast(cfg, zoo=hf.zoo, device=device)
+        counted("save_all", lambda: dbg.swap(*imgs, exp_name="smoke"), at_least=2)
+        dumped = sorted(str(p.relative_to(d)) for p in Path(d).rglob("*.*"))
+    log(f"[serving] save_all dump: {dumped}")
+    if len(dumped) != 9:
+        raise AssertionError(f"save_all wrote {dumped}")
+    return out
+
+
+def phase_star(hf, device, card: str) -> float:
+    """Full-width STAR (WFLW, 4 stacks x 4 levels x 256 channels, random
+    weights): the card against the CPU, the gate, an aligned swap."""
+    import torch
+
+    from hairfastgan_torch.models.star import star_landmarks_nchw
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.utils import face_align
+    from hairfastgan_torch.zoo import cast_zoo, init_star
+
+    star = init_star(seed=0, device=device)
+    x = torch.from_numpy(np.random.default_rng(9).random((1, 3, 256, 256), dtype=np.float32))
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        lm_g, sp_g = star_landmarks_nchw(star, x.to(device) * 2 - 1, with_spread=True)
+        lm_c, sp_c = star_landmarks_nchw(map_tree(star, lambda _, t: t.cpu()), x * 2 - 1,
+                                         with_spread=True)
+    torch.backends.cudnn.allow_tf32 = True
+    err = max((lm_g.cpu() - lm_c).abs().max().item() / lm_c.abs().max().item(),
+              (sp_g.cpu() - sp_c).abs().max().item() / sp_c.abs().max().item())
+    xs = x.to(device) * 2 - 1
+    with torch.inference_mode():
+        star_ms = cuda_ms(lambda: star_landmarks_nchw(star, xs, with_spread=True), 5)
+        star_ms = cuda_ms(lambda: star_landmarks_nchw(star, xs, with_spread=True), 20)
+    log(f"[star] landmarks [1,98,2] card vs CPU (f32, TF32 off): max |diff| {err:.2e} of scale; "
+        f"one 256^2 pass {star_ms:.2f} ms (CUDA events, 20 runs)  [{card}]")
+    if err > 2e-4:
+        raise AssertionError(f"STAR card vs CPU: {err}")
+
+    rng = np.random.default_rng(10)
+    photos = [rng.integers(0, 256, (1500, 1200, 3), dtype=np.uint8) for _ in range(3)]
+    try:
+        face_align.star_landmark_provider(star)(photos[0].astype(np.float32) / 255.0)
+    except face_align.AlignmentError as e:
+        log(f"[star] the gate raises on random weights: {str(e)[:100]}...")
+    else:
+        raise AssertionError("the STAR gate passed random weights")
+    orig = face_align.star_landmark_provider
+    hf.zoo["star"] = cast_zoo(star, hf.dtype)
+    face_align.star_landmark_provider = lambda p, **kw: orig(p, **dict(kw, check=False))
+    try:
+        t0 = time.perf_counter()
+        out = counted("swap align=True", lambda: hf.swap(*photos, seed=1, align=True),
+                      at_least=2)
+        align_s = time.perf_counter() - t0
+    finally:
+        face_align.star_landmark_provider = orig
+        del hf.zoo["star"]
+    size = hf.cfg.stylegan.size
+    if out.shape != (size, size, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"aligned swap gave {out.shape}")
+    log(f"[star] gate off: three 1500x1200 photos aligned and swapped in {align_s:.2f} s "
+        f"(host clock: 6 STAR passes, the FFHQ crops on the host, the swap)  [{card}]")
+    return star_ms
+
+
+def phase_cli(card: str) -> None:
+    """python -m hairfastgan_torch.main --micro --poisson on the card, in a
+    subprocess that reports the kernel's launches."""
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(11)
+        for name in "abc":
+            Image.fromarray(rng.integers(0, 256, (200, 160, 3), dtype=np.uint8)).save(
+                Path(d) / f"{name}.png")
+        argv = ["hairfastgan_torch.main", "--micro", "--poisson", "--input_dir", d,
+                "--face_path", "a.png", "--shape_path", "b.png", "--color_path", "c.png",
+                "--output_dir", str(Path(d) / "out")]
+        code = ("import json, runpy, sys; import chip_smoke as C; "
+                "from hairfastgan_torch.ops import morphology as M; C.record_shapes(); "
+                f"sys.argv = {argv!r}; runpy.run_module('hairfastgan_torch.main', "
+                "run_name='__main__'); print('SHAPES', json.dumps(sorted(C.SEEN))); "
+                "print('LAUNCHES', M.dilate_erode.launches)")
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=600, cwd=Path(__file__).resolve().parent)
+        if res.returncode != 0:
+            raise AssertionError(f"CLI failed ({res.returncode}): {res.stderr[-2000:]}")
+        shapes_out, n = res.stdout.split("SHAPES")[-1].split("LAUNCHES")
+        SEEN.update((tuple(s), d, i) for s, d, i in json.loads(shapes_out))
+        n = int(n)
+        LAUNCHES["CLI --micro --poisson"] = n
+        shape = np.asarray(Image.open(Path(d) / "out" / "a_b_c.png")).shape
+    log(f"[cli] --micro --poisson on the card: wrote a_b_c.png {shape}; dilate_erode launches "
+        f"{n}  [{card}]")
+    if n < 3 or shape != (128, 128, 3):
+        raise AssertionError(f"CLI: {n} launches, {shape}")
+
+
 def main() -> int:
     import torch
 
@@ -341,17 +675,41 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
 
-    max_err = phase_kernel(device)
-    hf, imgs, launches = phase_main(device, card)
-    p50, peak, rows = phase_times(hf, imgs, device, card)
-    phase_breakdown(hf, imgs, device, card)
+    phase_s = {}
 
-    k_ms, p_ms = rows["bfloat16"]
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        log(f"[{name}] phase took {phase_s[name]} s")
+        return out
+
+    max_err = phase("kernel", phase_kernel, device)
+    record_shapes()  # every later launch must be at a shape phase 3 checked
+    hf, hf32, imgs, launches = phase("main", phase_main, device, card)
+    p50, peak, rows = phase("times", phase_times, hf, imgs, device, card)
+    phase("breakdown", phase_breakdown, hf, imgs, device, card)
+    phase("host", phase_host_steps, hf, imgs, device, card)
+    serving = phase("serving", phase_serving, hf, hf32, imgs, device, card)
+    del hf32
+    star_ms = phase("star", phase_star, hf, device, card)
+    phase("cli", phase_cli, card)
+    unchecked = SEEN - CHECKED
+    if unchecked:
+        raise AssertionError(f"the kernel ran at shapes phase 3 did not check: {sorted(unchecked)}")
+    log(f"[kernel] the run launched the kernel at {len(SEEN)} (shape, dtype, iterations), "
+        f"each checked bit for bit in phase 3: {sorted(SEEN)}")
+
+    k_ms, p_ms, _, _ = rows[((3, 256, 256, 1), 5, "bfloat16")]
+    kc_ms, pc_ms, _, _ = rows[((1, 1024, 1024, 1), 30, "float32")]
     report = {"kernels": [{
         "name": "dilate_erode", "route": "cuda",
         "source": "hairfastgan_torch/csrc/morphology.cu",
         "replaces": "hairfastgan_tpu/ops/pallas_morphology.py:55",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}
+        "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+        "ms_1024x30": kc_ms, "plain_ms_1024x30": pc_ms, "launches_by_path": LAUNCHES}]}
+    log(f"[summary] phase seconds {phase_s}; B=8 {serving['batch8'][0]:.2f} transfers/s; "
+        f"composite {serving['composite'][0]:.2f} ms; STAR pass {star_ms:.2f} ms")
     log(f"[summary] card: {card}; swap p50 {p50:.2f} ms; peak {peak:.2f} GiB")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -113,8 +113,8 @@ def _launch(mask: Tensor, iterations: int) -> Tuple[Tensor, Tensor]:
         stream = torch.cuda.current_stream(mask.device).cuda_stream
         err = lib.hf_dilate_erode(mask.data_ptr(), dil.data_ptr(), ero.data_ptr(),
                                   b, h, w, iterations, _DTYPES[mask.dtype], stream)
-    if err != 0:  # 1 = cudaErrorInvalidValue: more than 65535 masks, or a row too
-        # wide for the device's shared memory (csrc/morphology.cu)
+    if err != 0:  # 1 = cudaErrorInvalidValue: more than 65535 masks, more than
+        # 256 iterations or 2,097,120 rows (csrc/morphology.cu)
         raise RuntimeError(f"dilate_erode kernel launch failed: cudaError {err} "
                            f"for [B,H,W]={[b, h, w]}, iterations={iterations}")
     dilate_erode.launches += 1

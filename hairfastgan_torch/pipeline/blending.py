@@ -29,8 +29,10 @@ def blend_images(zoo: Dict, align_shape: Dict[str, Tensor], align_color: Dict[st
                  embed_face: Dict[str, Tensor], embed_color: Dict[str, Tensor], *,
                  all_same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None) -> Tensor:
-    """-> final image [B,H,W,3] in [0,1] (NHWC)."""
+                 generator: Optional[torch.Generator] = None,
+                 return_intermediate: bool = False):
+    """-> final image [B,H,W,3] in [0,1] (NHWC); with return_intermediate,
+    (final, {I_blend (NHWC, [-1,1]), S_blend, S_final, F_final (NHWC)})."""
     i_1 = embed_face["image_norm_256"].to(dtype)
     i_3 = embed_color["image_norm_256"].to(dtype)
     b, dev = i_1.shape[0], i_1.device
@@ -63,4 +65,8 @@ def blend_images(zoo: Dict, align_shape: Dict[str, Tensor], align_color: Dict[st
         zoo["generator"], s_final, noise=stylegan2.make_noise(generator, cfg.stylegan, b, dev),
         start_layer=5, end_layer=8, layer_in=f_final.permute(0, 3, 1, 2),
         cfg=cfg.stylegan, dtype=dtype)
-    return ((i_final + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    final = ((i_final + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    if return_intermediate:
+        return final, {"I_blend": i_blend.permute(0, 2, 3, 1), "S_blend": s_blend,
+                       "S_final": s_final, "F_final": f_final}
+    return final

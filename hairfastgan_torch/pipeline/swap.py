@@ -52,10 +52,16 @@ def check_config(cfg: HairFastConfig) -> None:
 def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
               case: str = "distinct", cfg: HairFastConfig = HairFastConfig(),
               dtype: torch.dtype = torch.float32,
-              generator: Optional[torch.Generator] = None) -> Tensor:
+              generator: Optional[torch.Generator] = None,
+              return_intermediate: bool = False):
     """One batched hair transfer: NHWC [B,H,W,3] (uint8 or [0,1] float) ->
     [B,H,W,3] in [0,1]. `generator` draws fresh noise (the reference's
-    randomize_noise); None is deterministic zero noise, the parity mode."""
+    randomize_noise); None is deterministic zero noise, the parity mode.
+
+    return_intermediate=True also returns the per-stage artifacts that
+    save_all dumps, under the JAX package's keys and layouts (W/S/F of
+    face, shape and color, mask_*, latent_F_align, HM_X, I_blend, S_blend,
+    S_final, F_final)."""
     if case not in CASES:
         raise ValueError(f"case must be one of {CASES}, got {case!r}")
     check_config(cfg)
@@ -88,5 +94,16 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
     else:
         align_color = shape_module(zoo, e_face, e_color, same=(case == "face_eq_color"),
                                    cfg=cfg, dtype=dtype, generator=generator)
-    return blend_images(zoo, align_shape, align_color, e_face, e_color,
-                        all_same=(case == "same"), cfg=cfg, dtype=dtype, generator=generator)
+    out = blend_images(zoo, align_shape, align_color, e_face, e_color,
+                       all_same=(case == "same"), cfg=cfg, dtype=dtype, generator=generator,
+                       return_intermediate=return_intermediate)
+    if not return_intermediate:
+        return out
+    final, blend_inter = out
+    inter = {f"{k}_{name}": e[k] for name, e in (("face", e_face), ("shape", e_shape),
+                                                 ("color", e_color)) for k in ("W", "S", "F")}
+    inter.update({f"mask_{name}": e["mask"] for name, e in (("face", e_face), ("shape", e_shape),
+                                                             ("color", e_color))})
+    inter.update(latent_F_align=align_shape["latent_F_align"], HM_X=align_color["HM_X"],
+                 **blend_inter)
+    return final, inter

@@ -18,10 +18,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hairfastgan_torch.config import HairFastConfig
-from hairfastgan_torch.models import bisenet, clip_vit, e4e, encoders, iresnet, sean
+from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+from hairfastgan_torch.models import bisenet, clip_vit, e4e, encoders, iresnet, sean, star
 from hairfastgan_torch.models import shape_adaptor as sa
 from hairfastgan_torch.models import stylegan2
+from hairfastgan_torch.models.layers import spec
 from hairfastgan_torch.params.bridge import map_tree, to_port
 
 
@@ -32,7 +33,7 @@ def zoo_shapes(cfg: HairFastConfig = HairFastConfig()) -> Dict:
         "generator": stylegan2.init_generator_params(cfg.stylegan),
         "e4e": e4e.init_e4e(n_styles=n_latent),
         "fse": iresnet.init_fs_encoder(n_styles=n_latent, fs_layers=(5,)),
-        "fse_latent_avg": torch.empty((n_latent, 512), device="meta"),
+        "fse_latent_avg": spec(n_latent, 512),
         "bisenet": bisenet.init_bisenet(n_classes=19),
         "sean": sean.init_sean_generator(),
         "shape_adaptor": sa.init_shape_adaptor(),
@@ -45,13 +46,16 @@ def zoo_shapes(cfg: HairFastConfig = HairFastConfig()) -> Dict:
 def fill_random(shapes, seed: Optional[int], device="cpu"):
     """Fill a JAX-layout shape tree from a numpy seed and convert to the
     port's layout, f32 on `device`. seed=None keeps meta tensors (shapes
-    only)."""
+    only); leaves that are real tensors (STAR's fixed E2H weights) are
+    kept as they are and draw nothing."""
     rng = None if seed is None else np.random.default_rng(seed)
 
-    def leaf(key, spec):
+    def leaf(key, t):
+        if t.device.type != "meta":  # a fixed constant (STAR's E2H weights)
+            return to_port(key, t).to(device)
         if rng is None:
-            return to_port(key, spec)
-        shape = tuple(spec.shape)
+            return to_port(key, t)
+        shape = tuple(t.shape)
         if key == "var":
             a = np.ones(shape, np.float32)
         elif key == "mean":
@@ -68,6 +72,81 @@ def init_zoo(cfg: HairFastConfig = HairFastConfig(), seed: Optional[int] = 0,
     """Random full f32 zoo at `cfg` on `device` (seed=None: meta tensors
     only); zoo.cast_zoo casts it to the compute dtype."""
     return fill_random(zoo_shapes(cfg), seed, device)
+
+
+def tiny_zoo_shapes(size: int = 128, max_channels: int = 512):
+    """(shape tree, cfg) of the JAX package's init_tiny_zoo: a small
+    generator resolution and shallow trunks at the real widths."""
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=size, max_channels=max_channels))
+    n_latent = cfg.stylegan.n_latent
+    clip = clip_vit.init_clip_image_tower(width=64, layers=2, embed_dim=512)
+    shapes = {
+        "generator": stylegan2.init_generator_params(cfg.stylegan),
+        "e4e": e4e.init_e4e(n_styles=n_latent, se=False),
+        "fse": iresnet.init_fs_encoder(n_styles=n_latent, fs_layers=(5,), depth=18),
+        "fse_latent_avg": spec(n_latent, 512),
+        "bisenet": bisenet.init_bisenet(n_classes=19),
+        "sean": sean.init_sean_generator(ngf=16),
+        "shape_adaptor": sa.init_shape_adaptor(),
+        "rotate": encoders.init_rotate_model(),
+        "blending": encoders.init_blending_model(clip),
+        "post_process": _post_process(n_latent, iresnet.init_fs_encoder(
+            n_styles=n_latent, fs_layers=(9,), depth=18), iresnet.init_feature_iresnet()),
+    }
+    return shapes, cfg
+
+
+def micro_zoo_shapes(size: int = 128, max_channels: int = 128, width: float = 0.25):
+    """(shape tree, cfg) of the JAX package's init_micro_zoo: the tiny zoo
+    with `width`-scaled trunks and a max_channels-capped generator."""
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=size, max_channels=max_channels))
+    n_latent = cfg.stylegan.n_latent
+    c16, c64 = cfg.stylegan.channels(16), cfg.stylegan.channels(64)
+    clip = clip_vit.init_clip_image_tower(width=64, layers=2, embed_dim=512)
+    shapes = {
+        "generator": stylegan2.init_generator_params(cfg.stylegan),
+        "e4e": e4e.init_e4e(n_styles=n_latent, se=False, width=width),
+        "fse": iresnet.init_fs_encoder(n_styles=n_latent, fs_layers=(5,), depth=18,
+                                       width=width, content_ch=c16),
+        "fse_latent_avg": spec(n_latent, 512),
+        "bisenet": bisenet.init_bisenet(n_classes=19, width=width),
+        "sean": sean.init_sean_generator(ngf=8, z_ngf=8),
+        "shape_adaptor": sa.init_shape_adaptor(hidden=8),
+        "rotate": encoders.init_rotate_model(),
+        "blending": encoders.init_blending_model(clip),
+        "post_process": _post_process(
+            n_latent, iresnet.init_fs_encoder(n_styles=n_latent, fs_layers=(9,), depth=18,
+                                              width=width, content_ch=c64),
+            iresnet.init_feature_iresnet(blocks=((c64, 1), (c64, 1)), inplanes=2 * c64)),
+    }
+    return shapes, cfg
+
+
+def _post_process(n_latent: int, encoder_face, to_feature):
+    return {"encoder_face": encoder_face, "latent_avg": spec(n_latent, 512),
+            "to_feature": to_feature,
+            "to_latent_1": [encoders.init_modulation_module() for _ in range(5)],
+            "to_latent_2": [encoders.init_modulation_module() for _ in range(5)]}
+
+
+def init_tiny_zoo(seed: int = 0, device="cpu"):
+    """(random zoo, cfg) with init_tiny_zoo's shapes (the CLI's --tiny)."""
+    shapes, cfg = tiny_zoo_shapes()
+    return fill_random(shapes, seed, device), cfg
+
+
+def init_micro_zoo(seed: int = 0, device="cpu"):
+    """(zoo, cfg): exactly the JAX package's init_micro_zoo_fast(seed),
+    bridged (the CLI's --micro)."""
+    shapes, cfg = micro_zoo_shapes()
+    return fill_random(shapes, seed, device), cfg
+
+
+def init_star(seed: int = 0, device="cpu", **kw) -> Dict:
+    """Random STAR landmark weights (models/star.init_star's tree; WFLW, 4
+    stacks x 4 levels x 256 channels by default) for zoo["star"]. Random
+    zoos carry no STAR; the JAX package adds it only from a checkpoint."""
+    return fill_random(star.init_star(**kw), seed, device)
 
 
 def cast_zoo(zoo: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:
