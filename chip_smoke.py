@@ -20,16 +20,23 @@ Phases (any failure exits nonzero and prints no result line):
   8. the serving surface at full width in bf16: uint8 and output_res=512
      against the float path, upload_res=512, poisson=True (the composite's
      time and launches), swap_batch at B=8 (transfers/s, peak memory, rows
-     against B=1 in f32), swap_stream over 8 PNG triples, a save_all dump
-  9. full-width STAR: landmarks on the card against the CPU, the
+     against B=1 in f32), swap_stream over 8 PNG triples (and which decoder
+     it used), a save_all dump
+  9. checkpoint_serve: the full-width f32 zoo saved to a zoo_torch.pt and
+     loaded back by HairFast(checkpoint_dir), leaf for leaf; the HTTP server
+     over it: /healthz, /swap plain, output_res=512 and poisson=1 within 1
+     uint8 step of hf.swap, 400 on a malformed query, 413 on an oversize
+     body, the request p50 by the client's clock
+ 10. full-width STAR: landmarks on the card against the CPU, the
      confidence gate raising, an aligned 1500x1200 photo through swap
- 10. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
+ 11. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
      subprocess on the card
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
 The line before the last is the kernel report (JSON); the last line is
-{"ok": true, "device": {...}}. Imports no JAX.
+{"ok": true, "device": {...}}. Imports no JAX and nothing of the JAX
+package; the run fails if either was imported.
 """
 
 from __future__ import annotations
@@ -123,6 +130,24 @@ def device_us(fn, n: int) -> float:
     total = sum(e.device_time for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     return total / n
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM5 HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores (NVIDIA data sheet)
+
+
+def dilate_erode_bound(shape, itemsize: int, iterations: int):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    dilate_erode at `shape`: one read of the mask and one write of each of
+    the two outputs over the HBM rate, or the 4 two-input max (dilate) and 4
+    min (erode) per pixel per round over the float32 rate, whichever is
+    larger (bytes on a tie)."""
+    n = int(np.prod(shape))
+    t_bytes = 3 * n * itemsize / HBM_BYTES_PER_S
+    t_ops = 8 * iterations * n / F32_OPS_PER_S
+    if t_bytes >= t_ops * (1 - 1e-9):  # [1,1024,1024,1] f32 x30 ties to rounding
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
 
 
 def test_masks(shape, seed: int):
@@ -550,6 +575,10 @@ def phase_serving(hf, hf32, imgs, device, card: str) -> dict:
     out["stream"] = 8 / stream_s
     log(f"[serving] swap_stream: 8 triples (batch 4, depth 2) in {stream_s:.2f} s, "
         f"{out['stream']:.2f} triples/s incl. decode; loader: {hf.stream_loader}  [{card}]")
+    if hf.stream_loader == "PIL":
+        from hairfastgan_torch.data import native_loader
+
+        log(f"[serving] the native loader did not load: {native_loader.native_error()}")
 
     # one save_all dump
     with tempfile.TemporaryDirectory() as d:
@@ -561,6 +590,192 @@ def phase_serving(hf, hf32, imgs, device, card: str) -> dict:
     if len(dumped) != 9:
         raise AssertionError(f"save_all wrote {dumped}")
     return out
+
+
+def _post_swap(base: str, body: bytes, ctype: str, query: str = ""):
+    """POST /swap -> (status, response bytes, the server's step times in ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/swap{query}", data=body,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            timing = r.headers.get("Server-Timing", "")
+            steps = {k: float(v) for k, v in (p.split(";dur=") for p in timing.split(", "))}
+            return r.status, r.read(), steps
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), {}
+
+
+def phase_checkpoint_serve(zoo32, imgs, device, card: str, swap_p50: float) -> dict:
+    """The full-width f32 zoo through the port's zoo file (save, then
+    HairFast loading checkpoint_dir) and the HTTP server over that HairFast:
+    /healthz, /swap plain, output_res=512 and poisson=1 against hf.swap on
+    the same arrays, a malformed query and an oversize body."""
+    import http.client
+    import io
+    import shutil
+    import threading
+
+    import torch
+    from PIL import Image
+
+    from hairfastgan_torch import serve
+    from hairfastgan_torch.api import HairFast
+    from hairfastgan_torch.config import HairFastConfig
+    from hairfastgan_torch.params.checkpoint import ZOO_FILE, save_zoo
+    from hairfastgan_torch.zoo import cast_zoo
+
+    out = {}
+    cfg = HairFastConfig()
+    tmp = tempfile.mkdtemp(prefix="zoo_torch_")
+    try:
+        free = shutil.disk_usage(tmp).free / 2 ** 30
+        log(f"[checkpoint] saving the f32 zoo to {tmp} ({free:.1f} GiB free there)")
+        t0 = time.perf_counter()
+        path = save_zoo(tmp, zoo32)
+        out["save_s"] = time.perf_counter() - t0
+        size = path.stat().st_size / 2 ** 30
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hf = HairFast(dataclasses.replace(cfg, checkpoint_dir=Path(tmp)), device=device)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        ref = dict(_flat(cast_zoo(zoo32, torch.bfloat16)))
+        got = dict(_flat(hf.zoo))
+        if got.keys() != ref.keys():
+            raise AssertionError("the loaded zoo's tree differs from the saved one's")
+        unequal = [p for p, v in ref.items() if not (
+            torch.equal(got[p], v) if isinstance(v, torch.Tensor) else got[p] == v)]
+        if unequal or any(v.device.type != device.type for v in _leaves(hf.zoo)):
+            raise AssertionError(f"loaded leaves differ from the saved zoo's bf16 cast: {unequal[:5]}")
+        log(f"[checkpoint] {ZOO_FILE}: {size:.2f} GiB written in {out['save_s']:.2f} s; "
+            f"HairFast(checkpoint_dir) loaded it (memory-mapped, onto the card, bf16 cast) in "
+            f"{out['load_s']:.2f} s; all {len(ref)} leaves equal the saved zoo's bf16 cast  "
+            f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    srv = serve.build_server(hf, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        import urllib.request
+
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        name = torch.cuda.get_device_name(0)
+        if health.get("status") != "ok" or not any(name in d for d in health["devices"]):
+            raise AssertionError(f"/healthz does not name {name}: {health}")
+        log(f"[checkpoint] /healthz: {health}")
+
+        pngs = []
+        for im in imgs:
+            buf = io.BytesIO()
+            Image.fromarray(im).save(buf, format="PNG")
+            pngs.append(buf.getvalue())
+        boundary = "smokeBoundary7MA4YWxk"
+        body = b"".join(
+            b"--" + boundary.encode() + b"\r\nContent-Disposition: form-data; name=\"" +
+            k.encode() + b"\"; filename=\"" + k.encode() + b".png\"\r\nContent-Type: image/png"
+            b"\r\n\r\n" + data + b"\r\n" for k, data in zip(serve.FIELDS, pngs))
+        body += b"--" + boundary.encode() + b"--\r\n"
+        ctype = f"multipart/form-data; boundary={boundary}"
+        worst, size = 0, cfg.stylegan.size
+        half = size // 2  # 512 at full width
+        for label, query, kw, launches, shape in (
+                ("plain", "", {}, 2, (size, size, 3)),
+                (f"output_res={half}", f"?output_res={half}", {"output_res": half}, 2,
+                 (half, half, 3)),
+                ("poisson=1", "?poisson=1", {"poisson": True}, 3, (size, size, 3))):
+            status, data, _ = counted(f"/swap {label}",
+                                      lambda: _post_swap(base, body, ctype, query),
+                                      at_least=launches)
+            if status != 200:
+                raise AssertionError(f"/swap {label}: HTTP {status} {data[:200]!r}")
+            served = np.asarray(Image.open(io.BytesIO(data)))
+            direct = hf.swap(*imgs, output="uint8", **kw)
+            diff = int(np.abs(served.astype(np.int16) - direct.astype(np.int16)).max())
+            worst = max(worst, diff)
+            if served.shape != shape or diff > 1 or LAUNCHES[f"/swap {label}"] != launches:
+                raise AssertionError(f"/swap {label}: {served.shape}, {diff} steps from hf.swap, "
+                                     f"{LAUNCHES[f'/swap {label}']} launches")
+        log(f"[checkpoint] /swap plain, output_res={half}, poisson=1: PNGs of the right "
+            f"shapes, max {worst} uint8 step(s) from hf.swap on the same arrays; dilate_erode "
+            f"launches per request {LAUNCHES['/swap plain']}, "
+            f"{LAUNCHES[f'/swap output_res={half}']}, {LAUNCHES['/swap poisson=1']}")
+
+        status, _, _ = _post_swap(base, body, ctype, "?upload_res=abc")
+        if status != 400:
+            raise AssertionError(f"upload_res=abc gave HTTP {status}")
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=60)
+        try:
+            conn.putrequest("POST", "/swap")
+            conn.putheader("Content-Type", ctype)
+            conn.putheader("Content-Length", str(serve.MAX_BODY + 1))
+            conn.endheaders()
+            over = conn.getresponse().status
+        finally:
+            conn.close()
+        if over != 413:
+            raise AssertionError(f"a body over the cap gave HTTP {over}")
+        log(f"[checkpoint] upload_res=abc -> 400; Content-Length {serve.MAX_BODY + 1} -> 413 "
+            f"(not read)")
+
+        wall, steps = [], collections.defaultdict(list)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            status, _, timing = _post_swap(base, body, ctype)
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"/swap gave HTTP {status}")
+            for k, v in timing.items():
+                steps[k].append(v)
+        out["request_p50_ms"] = statistics.median(wall)
+        split = {k: round(statistics.median(v), 2) for k, v in steps.items()}
+        log(f"[checkpoint] /swap request p50 {out['request_p50_ms']:.1f} ms over 5 requests "
+            f"(client clock: multipart upload of three {size}^2 PNGs, decode, swap, PNG encode, "
+            f"response; min {min(wall):.1f} max {max(wall):.1f}) vs swap p50 {swap_p50:.2f} ms "
+            f"(phase times, CUDA events); the server's steps, p50 ms (Server-Timing): {split}  "
+            f"[{card}]")
+
+        # the same hf.swap by the host's clock: warm in this thread, and each
+        # in a new thread (PyTorch keeps cuDNN's execution plans per thread)
+        def timed():
+            t0 = time.perf_counter()
+            hf.swap(*imgs, output="uint8")
+            return (time.perf_counter() - t0) * 1e3
+
+        here = statistics.median(timed() for _ in range(3))
+        fresh = []
+        for _ in range(2):
+            th = threading.Thread(target=lambda: fresh.append(timed()))
+            th.start()
+            th.join()
+        log(f"[checkpoint] hf.swap uint8 by the host's clock: {here:.1f} ms warm in the main "
+            f"thread (p50 of 3), {fresh[0]:.1f} and {fresh[1]:.1f} ms each in a new thread; "
+            f"served swap step p50 {split['swap']:.1f} ms on the server's worker  [{card}]")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    del hf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flat(tree, prefix=()):
+    """(path, leaf) over dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat(v, prefix + (i,))
+    else:
+        yield prefix, tree
 
 
 def phase_star(hf, device, card: str) -> float:
@@ -691,6 +906,7 @@ def main() -> int:
     phase("breakdown", phase_breakdown, hf, imgs, device, card)
     phase("host", phase_host_steps, hf, imgs, device, card)
     serving = phase("serving", phase_serving, hf, hf32, imgs, device, card)
+    ckpt = phase("checkpoint_serve", phase_checkpoint_serve, hf32.zoo, imgs, device, card, p50)
     del hf32
     star_ms = phase("star", phase_star, hf, device, card)
     phase("cli", phase_cli, card)
@@ -702,15 +918,28 @@ def main() -> int:
 
     k_ms, p_ms, _, _ = rows[((3, 256, 256, 1), 5, "bfloat16")]
     kc_ms, pc_ms, _, _ = rows[((1, 1024, 1024, 1), 30, "float32")]
+    bound, bound_by = dilate_erode_bound((3, 256, 256, 1), 2, 5)
+    bound_c, bound_by_c = dilate_erode_bound((1, 1024, 1024, 1), 4, 30)
     report = {"kernels": [{
         "name": "dilate_erode", "route": "cuda",
         "source": "hairfastgan_torch/csrc/morphology.cu",
         "replaces": "hairfastgan_tpu/ops/pallas_morphology.py:55",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "ms_1024x30": kc_ms, "plain_ms_1024x30": pc_ms, "launches_by_path": LAUNCHES}]}
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+        "ms_1024x30": kc_ms, "plain_ms_1024x30": pc_ms, "bound_ms_1024x30": bound_c,
+        "bound_by_1024x30": bound_by_c, "launches_by_path": LAUNCHES}]}
     log(f"[summary] phase seconds {phase_s}; B=8 {serving['batch8'][0]:.2f} transfers/s; "
         f"composite {serving['composite'][0]:.2f} ms; STAR pass {star_ms:.2f} ms")
-    log(f"[summary] card: {card}; swap p50 {p50:.2f} ms; peak {peak:.2f} GiB")
+    log(f"[summary] card: {card}; swap p50 {p50:.2f} ms; peak {peak:.2f} GiB; zoo file save "
+        f"{ckpt['save_s']:.2f} s, load {ckpt['load_s']:.2f} s; /swap request p50 "
+        f"{ckpt['request_p50_ms']:.1f} ms")
+    log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
+        f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
+        f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")
+    jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+                      or m.startswith("hairfastgan_tpu"))
+    if jax_like:
+        raise AssertionError(f"JAX or the JAX package was imported: {jax_like[:10]}")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

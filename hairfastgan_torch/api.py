@@ -6,12 +6,13 @@
 device), `warmup`, `swap_batch` and `swap_stream`; `get_parser` /
 `config_from_args` give the CLI's model flags. Images come as paths, PIL
 images or uint8 / [0,1] float ndarrays. The zoo is the port's parameter tree
-(zoo.init_zoo, or params/bridge.bridge_zoo of a JAX zoo); without one a
-random zoo is drawn from seed 0 on the device. With cfg.compute_dtype ==
-"bfloat16" the zoo is cast to bf16 and every stage computes in bf16.
-Everything between the upload and the result's copy to the host (the
-swap, the Poisson composite, the output downsample, the uint8 quantization)
-runs on `device`.
+(zoo.load_zoo, zoo.init_zoo, or params/bridge.bridge_zoo of a JAX zoo);
+without one, `cfg.checkpoint_dir` is loaded when it exists (zoo.load_zoo:
+its zoo_torch.pt, else the reference's raw checkpoints), and a random zoo
+is drawn from seed 0 when it does not. With cfg.compute_dtype == "bfloat16"
+the zoo is cast to bf16 and every stage computes in bf16. Everything
+between the upload and the result's copy to the host (the swap, the Poisson
+composite, the output downsample, the uint8 quantization) runs on `device`.
 """
 
 from __future__ import annotations
@@ -26,14 +27,16 @@ import numpy as np
 import torch
 
 from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+from hairfastgan_torch.data import native_loader
 from hairfastgan_torch.ops.resample import bicubic_downsample
 from hairfastgan_torch.params.bridge import map_tree
 from hairfastgan_torch.pipeline.composite import poisson_composite
 from hairfastgan_torch.pipeline.swap import check_config, hair_fast, swap_cases
 from hairfastgan_torch.utils import face_align
-from hairfastgan_torch.zoo import cast_zoo, init_zoo
-from hairfastgan_tpu.utils.images import equal_replacer, save_image01, to_image_u8, to_raw_image
-from hairfastgan_tpu.utils.timing import BenchSession
+from hairfastgan_torch.utils.images import equal_replacer, save_image01, to_image_u8, to_raw_image
+from hairfastgan_torch.utils.save_utils import save_gen_image, save_latents, save_vis_mask
+from hairfastgan_torch.utils.timing import BenchSession
+from hairfastgan_torch.zoo import cast_zoo, init_zoo, load_zoo
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 OUTPUTS = ("float32", "uint8")
@@ -64,15 +67,9 @@ class HairFast:
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.compute_dtype]
-        if zoo is None:
-            if Path(cfg.checkpoint_dir).exists():
-                # the JAX package loads it; drawing random weights here would
-                # serve random images from a real checkpoint directory
-                raise RuntimeError(
-                    f"checkpoint directory {cfg.checkpoint_dir} exists, but the PyTorch "
-                    "port cannot load checkpoints yet: pass zoo= (e.g. "
-                    "params.bridge.bridge_zoo of the JAX package's load_zoo), or point "
-                    "checkpoint_dir (--ckpt_dir) at a missing path for random weights")
+        if zoo is None and Path(cfg.checkpoint_dir).exists():
+            zoo = load_zoo(cfg.checkpoint_dir, cfg, device=self.device)
+        elif zoo is None:
             zoo = init_zoo(cfg, seed=0, device=self.device)
         else:
             zoo = map_tree(zoo, lambda _, t: t.to(self.device))
@@ -255,8 +252,6 @@ class HairFast:
 
     def _dump_intermediates(self, exp_name: str, final: torch.Tensor, inter: Dict) -> None:
         """save_all artifact dumps (reference utils/save_utils.py usage)."""
-        from hairfastgan_tpu.utils.save_utils import save_gen_image, save_latents, save_vis_mask
-
         h = {k: _host(v) for k, v in inter.items()}
         out = Path(self.cfg.save_all_dir) / exp_name
         save_image01(out / "Final" / "final.png", _host(final))
@@ -311,10 +306,11 @@ class HairFast:
         """Serving path: yield (index, image) over (face, shape, color) path
         triples, in order, overlapping host decode with device compute.
 
-        Decoding runs on the native C++ loader's threads (the PIL fallback
-        when it is not available). Up to `depth` batches of `batch` triples
-        stay in flight on the device; the host blocks only on the oldest
-        one, whose copy to the host waits for that batch alone;
+        Decoding runs on the native C++ loader's threads, or with PIL where
+        that loader is unavailable (data/native_loader.native_error says
+        why). Up to `depth` batches of `batch` triples stay in flight on the
+        device; the host blocks only on the oldest one, whose copy to the
+        host waits for that batch alone;
         `self.stream_loader` names the decoder that ran. A partial
         last group is padded with its last triple, so every launch has one
         shape. Every batch draws its noise as a one-chunk swap_batch does, so
@@ -322,17 +318,16 @@ class HairFast:
         fails to decode yields (index, None), in launch order, and the stream
         goes on. upload_res / output_res as in `swap`.
         """
-        from hairfastgan_tpu.data.native_loader import NativeImageLoader, native_available
-
         up = self._upload_res(upload_res)
         ores = self._output_res(output_res)
         u8 = output == "uint8"
         paths = [p for t in triples for p in t]
         images: Dict[int, np.ndarray] = {}
-        self.stream_loader = "native C++" if native_available() else "PIL"
+        loader = None
+        self.stream_loader = "native C++" if native_loader.native_available() else "PIL"
         if self.stream_loader == "native C++":
-            got = iter(NativeImageLoader([str(p) for p in paths], out_size=up, threads=4,
-                                         dtype=np.uint8))
+            loader = native_loader.NativeImageLoader(paths, out_size=up, threads=4)
+            got = iter(loader)
         else:  # failed decodes are absent from `images`, as with the native loader
             for i, p in enumerate(paths):
                 try:
@@ -358,42 +353,47 @@ class HairFast:
                               self._generator(chunk_seed(self.cfg.seed, 0)), u8, ores)
             pending.append((idxs, self._fetch_async(out if u8 else out.float())))
 
-        while next_needed < n or pending:
-            while next_needed < n and len(pending) < depth:
-                group = list(range(next_needed, min(next_needed + batch, n)))
-                if all(ready(i) for i in group):
-                    launch(group)
-                    next_needed = group[-1] + 1
-                elif not drained:
-                    try:
-                        idx, img = next(got)
-                        images[idx] = img
-                    except StopIteration:
-                        drained = True
-                else:  # decode failures in this group: mark them, batch the rest
-                    good = [i for i in group if ready(i)]
-                    bad = [i for i in group if not ready(i)]
-                    for i in bad:
-                        missing = [paths[3 * i + j] for j in range(3) if 3 * i + j not in images]
-                        warnings.warn(f"skipping triple {i}: decode failed for {missing}")
-                        for j in range(3):
-                            images.pop(3 * i + j, None)
-                    pending.append((bad, None))
-                    if good:
-                        launch(good)
-                    next_needed = group[-1] + 1
-            if pending:
-                idxs, fetched = pending.popleft()
-                if fetched is None:
-                    for i in idxs:
-                        yield i, None
-                    continue
-                host, done = fetched
-                if done is not None:
-                    done.synchronize()
-                host = host.numpy()
-                for j, i in enumerate(idxs):
-                    yield i, host[j]
+        try:
+            while next_needed < n or pending:
+                while next_needed < n and len(pending) < depth:
+                    group = list(range(next_needed, min(next_needed + batch, n)))
+                    if all(ready(i) for i in group):
+                        launch(group)
+                        next_needed = group[-1] + 1
+                    elif not drained:
+                        try:
+                            idx, img = next(got)
+                            images[idx] = img
+                        except StopIteration:
+                            drained = True
+                    else:  # decode failures in this group: mark them, batch the rest
+                        good = [i for i in group if ready(i)]
+                        bad = [i for i in group if not ready(i)]
+                        for i in bad:
+                            missing = [paths[3 * i + j] for j in range(3)
+                                       if 3 * i + j not in images]
+                            warnings.warn(f"skipping triple {i}: decode failed for {missing}")
+                            for j in range(3):
+                                images.pop(3 * i + j, None)
+                        pending.append((bad, None))
+                        if good:
+                            launch(good)
+                        next_needed = group[-1] + 1
+                if pending:
+                    idxs, fetched = pending.popleft()
+                    if fetched is None:
+                        for i in idxs:
+                            yield i, None
+                        continue
+                    host, done = fetched
+                    if done is not None:
+                        done.synchronize()
+                    host = host.numpy()
+                    for j, i in enumerate(idxs):
+                        yield i, host[j]
+        finally:  # stops the decode threads when the stream ends or is dropped
+            if loader is not None:
+                loader.close()
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -404,8 +404,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_all_dir", type=Path, default=Path("output"))
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--ckpt_dir", type=str, default="pretrained_models_jax",
-                   help="checkpoint directory; the port loads none yet and refuses an "
-                        "existing one")
+                   help="checkpoint directory, loaded when it exists (zoo_torch.pt, else the "
+                        "reference's raw checkpoints); random weights when it does not")
     p.add_argument("--channel_multiplier", type=int, default=2)
     p.add_argument("--latent", type=int, default=512)
     p.add_argument("--n_mlp", type=int, default=8)

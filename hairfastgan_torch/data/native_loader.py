@@ -1,0 +1,134 @@
+"""ctypes binding of the native C++ image loader (native/hf_loader.cpp):
+threaded libjpeg/libpng decode and a separable Keys (a=-0.75) bicubic resize
+into uint8 [H,W,3] buffers, for swap_stream and the upload_res coercion.
+
+The library is built from the repository's source with g++ at first use into
+hairfastgan_torch/_build/, and never taken from a prebuilt file. Where the
+build or the load fails, `native_available()` is False and `native_error()`
+says why; callers decode with PIL instead, the host-decode route of
+utils/images.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import platform
+import subprocess
+import warnings
+from pathlib import Path
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG.parent / "native" / "hf_loader.cpp"
+BUILD_DIR = _PKG / "_build"
+_U8P = ctypes.POINTER(ctypes.c_ubyte)
+
+
+def build() -> Path:
+    """Compile native/hf_loader.cpp for the host it runs on (-march=native,
+    the flags of the source's own build line) into a library keyed by the
+    source's hash and the host's name; no-op when already built."""
+    key = SOURCE.read_bytes() + platform.node().encode()
+    so = BUILD_DIR / f"hf_loader_{hashlib.sha256(key).hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp),
+           "-ljpeg", "-lpng", "-lpthread"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed ({res.returncode}): {res.stderr.strip()[-2000:]}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
+    """(library, None), or (None, why it could not be built or loaded)."""
+    try:
+        lib = ctypes.CDLL(str(build()))
+    except (OSError, RuntimeError) as e:  # no g++, no libjpeg/libpng, a bad load
+        return None, f"{type(e).__name__}: {e}"
+    lib.hfl_create2.restype = ctypes.c_void_p
+    lib.hfl_create2.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int]
+    lib.hfl_next_bytes.restype = ctypes.c_int
+    lib.hfl_next_bytes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_int)]
+    lib.hfl_destroy.restype = None
+    lib.hfl_destroy.argtypes = [ctypes.c_void_p]
+    lib.hfl_resize_u8.restype = ctypes.c_int
+    lib.hfl_resize_u8.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
+    return lib, None
+
+
+def native_available() -> bool:
+    return _load()[0] is not None
+
+
+def native_error() -> Optional[str]:
+    """Why the native loader is unavailable (None when it loaded)."""
+    return _load()[1]
+
+
+def _lib() -> ctypes.CDLL:
+    lib, err = _load()
+    if lib is None:
+        raise RuntimeError(f"the native loader is unavailable: {err}")
+    return lib
+
+
+def resize_u8_native(img: np.ndarray, out_size: int) -> np.ndarray:
+    """[H,W,3] uint8 -> [out_size,out_size,3] uint8, Keys a=-0.75 bicubic:
+    the kernel of the device resampler (ops/resample.resize bicubic)."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"resize_u8_native takes [H,W,3] uint8, got {img.shape} {img.dtype}")
+    img = np.ascontiguousarray(img)
+    out = np.empty((out_size, out_size, 3), np.uint8)
+    if not _lib().hfl_resize_u8(img.ctypes.data_as(_U8P), img.shape[0], img.shape[1],
+                                out_size, out.ctypes.data_as(_U8P)):
+        raise IOError("native resize failed")
+    return out
+
+
+class NativeImageLoader:
+    """Threaded prefetching decoder over a list of paths: iterates (index,
+    [out_size, out_size, 3] uint8) in completion order; a file that fails to
+    decode is skipped with a warning."""
+
+    def __init__(self, paths: Sequence, out_size: int = 1024, threads: int = 4):
+        self._lib = _lib()
+        self.paths = [str(p) for p in paths]
+        self.out_size = out_size
+        names = (ctypes.c_char_p * len(self.paths))(*[p.encode() for p in self.paths])
+        # the library copies the paths; format 1 is uint8 output
+        self._handle = self._lib.hfl_create2(names, len(self.paths), out_size, threads, 1)
+
+    def __iter__(self) -> Iterator[Tuple[int, np.ndarray]]:
+        idx = ctypes.c_int(0)
+        while self._handle:
+            out = np.empty((self.out_size, self.out_size, 3), np.uint8)
+            if not self._lib.hfl_next_bytes(self._handle, out.ctypes.data_as(ctypes.c_void_p),
+                                            ctypes.byref(idx)):
+                return
+            if idx.value < 0:
+                warnings.warn(f"decode failed: {self.paths[-idx.value - 1]}")
+                continue
+            yield idx.value, out
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.hfl_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from hairfastgan_torch.api import HairFast, config_from_args, get_parser
-from hairfastgan_tpu.utils.images import save_image01, to_image_u8
+from hairfastgan_torch.utils.images import save_image01, to_image_u8
 
 
 def triple_case(face, shape, color) -> str:
@@ -39,7 +39,10 @@ def triple_case(face, shape, color) -> str:
     return "distinct"
 
 
-def build(args: argparse.Namespace) -> HairFast:
+def build(args: argparse.Namespace, cfg=None) -> HairFast:
+    """HairFast on --device: the --tiny / --micro random zoo in f32, else
+    `cfg` (default: the model flags' config; its checkpoint_dir is loaded
+    when it exists)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available "
@@ -47,10 +50,10 @@ def build(args: argparse.Namespace) -> HairFast:
     if args.tiny or args.micro:
         from hairfastgan_torch import zoo as Z
 
-        zoo, cfg = (Z.init_micro_zoo if args.micro else Z.init_tiny_zoo)(0, device)
-        cfg = dataclasses.replace(cfg, compute_dtype="float32")
-        return HairFast(cfg, zoo=zoo, device=device)
-    return HairFast(config_from_args(args), device=device)
+        zoo, small = (Z.init_micro_zoo if args.micro else Z.init_tiny_zoo)(0, device)
+        return HairFast(dataclasses.replace(small, compute_dtype="float32"), zoo=zoo,
+                        device=device)
+    return HairFast(cfg or config_from_args(args), device=device)
 
 
 def main(args: argparse.Namespace) -> None:

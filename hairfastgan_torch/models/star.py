@@ -200,3 +200,46 @@ def keypoints_256(p, img01_256: Tensor, n_points: int = 76) -> Tensor:
     ((lm + 1) / 2 * 255)."""
     lm = star_landmarks(p, img01_256 * 2.0 - 1.0)
     return (lm[:, :n_points] + 1.0) / 2.0 * 255.0
+
+
+def convert_star(sd, nstack: int = 4) -> dict:
+    """STAR WFLW checkpoint ('net' state dict, numpy) -> init_star's tree
+    (the counterpart of the JAX package's models/star.convert_star)."""
+    from hairfastgan_torch.params.convert import t_bn, t_conv
+
+    def cb(name, bn=False):
+        out = {"conv": t_conv(sd, f"{name}.conv")}
+        if bn:
+            out["bn"] = t_bn(sd, f"{name}.bn")
+        return out
+
+    def rb(name):
+        out = {"bn1": t_bn(sd, f"{name}.bn1"), "conv1": cb(f"{name}.conv1"),
+               "bn2": t_bn(sd, f"{name}.bn2"), "conv2": cb(f"{name}.conv2"),
+               "bn3": t_bn(sd, f"{name}.bn3"), "conv3": cb(f"{name}.conv3")}
+        # torch builds skip_layer in every block; it is used where the widths differ
+        if (f"{name}.skip_layer.conv.weight" in sd and sd[f"{name}.bn1.running_mean"].shape[0]
+                != sd[f"{name}.conv3.conv.weight"].shape[0]):
+            out["skip"] = cb(f"{name}.skip_layer")
+        return out
+
+    def hg(name, n):
+        out = {"up1": rb(f"{name}.up1"), "low1": rb(f"{name}.low1"), "low3": rb(f"{name}.low3"),
+               "low2": hg(f"{name}.low2", n - 1) if n > 1 else rb(f"{name}.low2")}
+        if f"{name}.coordconv.conv.weight" in sd:
+            out["coordconv"] = {"conv": t_conv(sd, f"{name}.coordconv.conv")}
+        return out
+
+    e2h_w, e2h_b = e2h_matrix(WFLW_EDGE_INFO, WFLW_CLASSES[2], WFLW_CLASSES[1])
+    p = {"pre_conv": cb("pre.0", bn=True), "pre_r1": rb("pre.1"), "pre_r2": rb("pre.3"),
+         "pre_r3": rb("pre.4"), "stacks": [],
+         "e2h_w": torch.from_numpy(e2h_w), "e2h_b": torch.from_numpy(e2h_b)}
+    for i in range(nstack):
+        st = {"hg": hg(f"hgs.{i}", 4), "feat_r": rb(f"features.{i}.0"),
+              "feat_c": cb(f"features.{i}.1", bn=True), "out_heat": cb(f"out_heatmaps.{i}"),
+              "out_point": cb(f"out_pointmaps.{i}"), "out_edge": cb(f"out_edgemaps.{i}")}
+        if i < nstack - 1:
+            st.update(merge_feat=cb(f"merge_features.{i}"), merge_heat=cb(f"merge_heatmaps.{i}"),
+                      merge_point=cb(f"merge_pointmaps.{i}"), merge_edge=cb(f"merge_edgemaps.{i}"))
+        p["stacks"].append(st)
+    return p

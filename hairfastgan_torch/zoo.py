@@ -1,5 +1,6 @@
-"""The port's parameter zoo: a jax-free random init at any config, and the
-cast to the compute dtype (counterpart of hairfastgan_tpu/zoo.py).
+"""The port's parameter zoo: a jax-free random init at any config, the
+loader of a checkpoint directory (`load_zoo`), and the cast to the compute
+dtype (counterpart of hairfastgan_tpu/zoo.py).
 
 `zoo_shapes(cfg)` is the tree of `init_zoo` in the JAX package as `meta`
 tensors in JAX layout (no memory). `fill_random` fills it leaf by leaf
@@ -7,12 +8,13 @@ with numpy by the rule of the JAX package's `zoo._fill_random` (BN 'var'
 -> 1, 'mean' -> 0, other floats 0.05*N(0,1) drawn in JAX layout and leaf
 order) and converts each leaf through params/bridge.to_port straight onto
 the device, so the full zoo (1.25 G parameters at the default config) never
-exists twice. A seed therefore
-gives exactly the weights of the JAX package's init_zoo_fast(seed), bridged.
+exists twice. A seed therefore gives exactly the weights of the JAX
+package's init_zoo_fast(seed), bridged.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -153,3 +155,67 @@ def cast_zoo(zoo: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Float leaves -> the compute dtype (the JAX package's zoo.cast_zoo);
     norm statistics are promoted back to f32 inside the norm folds."""
     return map_tree(zoo, lambda _, t: t.to(dtype) if t.is_floating_point() else t)
+
+
+def load_zoo(checkpoint_dir, cfg: HairFastConfig = HairFastConfig(), device="cpu") -> Dict:
+    """The zoo of a checkpoint directory, on `device`, in the files' dtype
+    (f32 for the reference's checkpoints; counterpart of the JAX package's
+    zoo.load_zoo).
+
+    First `<dir>/zoo_torch.pt` (params/checkpoint.save_zoo). Else the
+    reference's raw pretrained_models/ layout (SURVEY.md §2.12), converted
+    by params/convert.py; a missing file raises with its name, and the STAR
+    landmark model (star_wflw.pth, for the on-device align path) is
+    optional. A directory that holds only the JAX package's orbax zoo/
+    raises with the command that converts for the port.
+    """
+    from hairfastgan_torch.params import convert as C
+    from hairfastgan_torch.params.checkpoint import ZOO_FILE, load_zoo_file
+
+    d = Path(checkpoint_dir)
+    if (d / ZOO_FILE).exists():
+        return load_zoo_file(d / ZOO_FILE, device)
+    if (d / "zoo").is_dir() and not (d / "StyleGAN" / "ffhq.pt").exists():
+        raise FileNotFoundError(
+            f"{d} holds the JAX package's orbax zoo ({d / 'zoo'}), which the PyTorch port "
+            "does not read; convert the reference checkpoints with: python -m "
+            f"hairfastgan_torch.convert_checkpoints --torch_dir pretrained_models --out_dir {d}")
+
+    def load(rel: str):
+        return torch.load(str(d / rel), map_location="cpu", weights_only=False)
+
+    def sd(rel: str, key=None):
+        return C.load_torch_state_dict(d / rel, key=key)
+
+    raw = load("StyleGAN/ffhq.pt")
+    g_ema = {k: v.numpy() for k, v in raw["g_ema"].items()}
+    latent_avg = raw["latent_avg"].numpy()  # [512] or [n_latent, 512]
+    if latent_avg.ndim == 1:
+        latent_avg = np.tile(latent_avg[None], (cfg.stylegan.n_latent, 1))
+    e4e_ckpt = load("encoder4editing/e4e_ffhq_encode.pt")
+    e4e_enc = {k[len("encoder."):]: v for k, v in C.state_dict_of(e4e_ckpt).items()
+               if k.startswith("encoder.")}
+    e4e_avg = e4e_ckpt.get("latent_avg")
+    e4e_avg = e4e_avg.numpy() if e4e_avg is not None else latent_avg
+    fse_sd = {k[len("enc."):] if k.startswith("enc.") else k: v
+              for k, v in sd("FeatureStyleEncoder/143_enc.pth").items()}
+    zoo = {
+        "generator": C.convert_stylegan2(g_ema),
+        "e4e": C.convert_e4e(e4e_enc, latent_avg=e4e_avg),
+        "fse": C.convert_fs_encoder(fse_sd, fs_layers=(5,)),
+        "fse_latent_avg": torch.from_numpy(np.array(latent_avg, np.float32)),
+        "bisenet": C.convert_bisenet(sd("BiSeNet/face_parsing_79999_iter.pth"), n_classes=19),
+        "sean": C.convert_sean(sd("sean_checkpoints/CelebA-HQ_pretrained/latest_net_G.pth"),
+                               mean_codes=C.load_sean_mean_codes(d / "sean_mean_codes")),
+        "shape_adaptor": C.convert_shape_adaptor(sd("ShapeAdaptor/mask_generator.pth")),
+        "rotate": C.convert_rotate(sd("Rotate/rotate_best.pth", key="model_state_dict")),
+        "blending": C.convert_blending(sd("Blending/checkpoint.pth", key="model_state_dict"),
+                                       clip_params=C.convert_clip_image_tower(
+                                           sd("clip_vit_b32.pt"))),
+        "post_process": C.convert_post_process(
+            sd("PostProcess/pp_model.pth", key="model_state_dict"),
+            latent_avg=load("PostProcess/latent_avg.pt").numpy()),
+    }
+    if (d / "star_wflw.pth").exists():  # the on-device (dlib-free) align path
+        zoo["star"] = star.convert_star(sd("star_wflw.pth", key="net"))
+    return map_tree(zoo, lambda _, t: t.to(device))

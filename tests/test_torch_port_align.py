@@ -70,8 +70,8 @@ def test_star_landmarks(small_star):
 
 
 def test_spread_gate_raises(small_star, photo):
-    """Random weights give diffuse heatmaps: the JAX package's gate raises."""
-    with pytest.raises(jfa.AlignmentError, match="confident"):
+    """Random weights give diffuse heatmaps: the spread gate raises."""
+    with pytest.raises(tfa.AlignmentError, match="confident"):
         tfa.star_landmark_provider(small_star[1])(photo)
 
 
@@ -88,14 +88,14 @@ def test_agreement_gate_raises(small_star, photo, monkeypatch):
         return lm, torch.full((1, 98), 0.1)
 
     monkeypatch.setattr(tfa, "star_landmarks_nchw", fake)
-    with pytest.raises(jfa.AlignmentError, match="disagree"):
+    with pytest.raises(tfa.AlignmentError, match="disagree"):
         tfa.star_landmark_provider(small_star[1])(photo)
     assert calls == [(1, 3, 256, 256)] * 2
 
 
 def test_aligned_crop_matches_jax(small_star, photo, monkeypatch):
-    """Gate off: the port's align_faces (its STAR provider driving the JAX
-    package's FFHQ crop) within 1 uint8 step of the JAX provider's crop."""
+    """Gate off: the port's align_faces (its STAR provider driving its own
+    FFHQ crop) within 1 uint8 step of the JAX package's crop."""
     jp, tp = small_star
     ref = jfa.align_faces([photo], output_size=128, landmark_layout="wflw98",
                           landmark_fn=jfa.star_landmark_provider(jp, check=False))[0]

@@ -1,6 +1,9 @@
 """The port's CLI (python -m hairfastgan_torch.main) and its model flags on
 the CPU: parser defaults equal to the JAX CLI's, the --tiny / --micro zoos
-against the JAX package's, and --micro runs that write PNGs."""
+against the JAX package's, and --micro runs that write PNGs. The port's
+config classes are its own, so configs compare field for field."""
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -30,7 +33,8 @@ def test_parser_defaults_match_jax():
     assert runner["device"] == "cuda" and runner["batch"] == 1
     cfg = tapi.config_from_args(tapi.get_parser().parse_args(["--size", "256", "--save_all"]))
     ref = japi.config_from_args(japi.get_parser().parse_args(["--size", "256", "--save_all"]))
-    assert cfg == ref.__class__(**{**ref.__dict__, "compile_cache_dir": None})
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        dataclasses.replace(ref, compile_cache_dir=None))
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +48,7 @@ def test_micro_zoo_is_jax_micro_zoo(micro):
     theirs, jcfg = init_micro_zoo_fast(0)
     ref = flat(bridge_zoo(theirs))
     got = flat(ours)
-    assert cfg == jcfg and got.keys() == ref.keys()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and got.keys() == ref.keys()
     for p, v in ref.items():
         assert (torch.equal(got[p], v) if isinstance(v, torch.Tensor) else got[p] == v), p
 
@@ -55,7 +59,8 @@ def test_tiny_zoo_shapes_match_jax():
     ours = {p: (tuple(v.shape) if isinstance(v, torch.Tensor) else v)
             for p, v in flat(tzoo.fill_random(shapes, None)).items()}
     assert ours == port_shapes(jshapes)
-    assert cfg == HairFastConfig(stylegan=StyleGANConfig(size=128, max_channels=512))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        HairFastConfig(stylegan=StyleGANConfig(size=128, max_channels=512)))
 
 
 def test_cuda_device_without_gpu_raises():

@@ -1,7 +1,8 @@
 """The port's serving surface (hairfastgan_torch/api.py) on the CPU: the
 intermediates of `hair_fast(return_intermediate=True)` against the JAX
 package's, the serving levers (uint8, upload_res, output_res), save_all
-dumps, warmup, swap_batch, swap_stream and the checkpoint-directory guard.
+dumps, warmup, swap_batch, swap_stream and loading an existing checkpoint
+directory.
 
 The zoo is the micro zoo passed through torch_port_util.lively (signals
 carry through every model), f32. Tolerances: intermediates within 2e-4 of
@@ -28,7 +29,9 @@ from hairfastgan_tpu.pipeline.swap import hair_fast as jax_hair_fast
 from hairfastgan_tpu.zoo import init_micro_zoo_fast
 from hairfastgan_torch.api import HairFast, chunk_seed
 from hairfastgan_torch.params.bridge import bridge_zoo
+from hairfastgan_torch.params.checkpoint import save_zoo
 from hairfastgan_torch.pipeline.swap import hair_fast
+from tests.test_torch_port_convert import assert_same_tree
 from tests.torch_port_util import close, graft_triples, lively
 
 torch.set_num_threads(2)
@@ -176,6 +179,11 @@ def test_swap_stream(hf, tmp_path):
     np.testing.assert_array_equal(got[3][1], batch([3, 3])[0])
 
 
-def test_existing_checkpoint_dir_raises(tmp_path):
-    with pytest.raises(RuntimeError, match="cannot load checkpoints"):
-        HairFast(HairFastConfig(checkpoint_dir=tmp_path), device="cpu")
+def test_existing_checkpoint_dir_loads(live, tmp_path):
+    """An existing checkpoint_dir is loaded (its zoo_torch.pt), as the JAX
+    package loads its own, in place of drawing random weights."""
+    _, tz, cfg = live
+    save_zoo(tmp_path, tz)
+    hf = HairFast(dataclasses.replace(cfg, compute_dtype="float32", checkpoint_dir=tmp_path),
+                  device="cpu")
+    assert_same_tree(hf.zoo, tz)

@@ -1,7 +1,10 @@
 """The port's parameter bridge and jax-free random init, held against the
-JAX package's zoo; and the port's import boundary (no JAX)."""
+JAX package's zoo; and the port's import boundary: no JAX and nothing of
+the JAX package, in the package and in chip_smoke.py."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -119,17 +122,14 @@ def test_cast_zoo():
     assert out["idx"].dtype == torch.int64 and out["stride"] == 2
 
 
-ALLOWED_TPU_IMPORTS = {"hairfastgan_tpu.config", "hairfastgan_tpu.utils.images",
-                       "hairfastgan_tpu.utils.save_utils", "hairfastgan_tpu.utils.timing",
-                       "hairfastgan_tpu.utils.face_align", "hairfastgan_tpu.data.native_loader"}
+ALLOWED_TPU_IMPORTS = set()  # the port owns its config and host modules
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(PORT))
-                                        for p in PORT.rglob("*.py")))
+                                        for p in PORT.rglob("*.py")) + ["../chip_smoke.py"])
 def test_port_imports_no_jax(path):
-    """No module of the port imports jax (or jaxlib), and the only JAX-package
-    modules it imports are the jax-free host modules: config, the image,
-    save, timing and face-alignment utilities, and the native loader."""
+    """No module of the port, and not chip_smoke.py, imports jax (or jaxlib)
+    or any module of the JAX package."""
     tree = ast.parse((PORT / path).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -142,3 +142,40 @@ def test_port_imports_no_jax(path):
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax"), (path, name)
             if name.startswith("hairfastgan_tpu"):
                 assert name in ALLOWED_TPU_IMPORTS, (path, name)
+
+
+BLOCKED_RUN = """
+import importlib.abc, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np, torch
+import hairfastgan_torch.api, hairfastgan_torch.convert_checkpoints
+import hairfastgan_torch.main, hairfastgan_torch.serve
+from hairfastgan_torch.zoo import init_micro_zoo
+
+torch.set_num_threads(2)
+zoo, cfg = init_micro_zoo(0)
+hf = hairfastgan_torch.api.HairFast(cfg, zoo=zoo, device="cpu")
+rng = np.random.default_rng(0)
+out = hf.swap(*(rng.integers(0, 256, (128, 128, 3), dtype=np.uint8) for _ in range(3)),
+              output="uint8")
+assert out.shape == (128, 128, 3) and out.dtype == np.uint8
+left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
+assert not left, left
+print("SWAPPED", out.shape)
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    """With jax and the JAX package unimportable, the port's entry points
+    import and a micro swap runs on the CPU, in a fresh interpreter."""
+    res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
+                         timeout=300, cwd=PORT.parent)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "SWAPPED (128, 128, 3)" in res.stdout
