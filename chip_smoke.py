@@ -6,8 +6,9 @@ Phases (any failure exits nonzero and prints no result line):
   1. the card: nvidia-smi name and power limit, torch's device name
   2. build the hand-written kernel (csrc/morphology.cu) with nvcc
   3. kernel == its plain PyTorch version, bit for bit, on the card: the
-     swap's masks at B=1, 8 and 4 triples, and the Poisson composite's
-     [B,1024,1024,1] x 30 and the --micro CLI's [1,128,128,1] x 30
+     swap's masks at B=1, 8 and 4 triples, the Poisson composite's
+     [B,1024,1024,1] x 30, the --micro CLI's [1,128,128,1] x 30 and the
+     training data generators' [6,256,256,1] and [2,256,256,1] x 5
   4. the port's main path: HairFast(HairFastConfig()).warmup, then .swap on
      three distinct seeded 1024^2 images, random full-width zoo in bf16; the
      kernel's launch count over each; a zero-noise f32 run; and the slice at
@@ -27,10 +28,18 @@ Phases (any failure exits nonzero and prints no result line):
      over it: /healthz, /swap plain, output_res=512 and poisson=1 within 1
      uint8 step of hf.swap, 400 on a malformed query, 413 on an oversize
      body, the request p50 by the client's clock
- 10. full-width STAR: landmarks on the card against the CPU, the
+ 10. train: the training path at full width in f32 on phase 4's f32 zoo:
+     the data generators at B=2 (blending, seg16 blending, mask16, rotate
+     pair; ms, launches, the JAX row ABI), 1 + 5 blending steps and 1 + 3
+     pose / 1 + 3 hair rotate steps (step p50, peak memory, finite losses,
+     trainable weights moved, frozen ones untouched), the train state's
+     round trip, and micro steps on the card against the CPU (TF32 off)
+ 11. full-width STAR: landmarks on the card against the CPU, the
      confidence gate raising, an aligned 1500x1200 photo through swap
- 11. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
-     subprocess on the card
+ 12. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
+     subprocess on the card, then the four training scripts (--tiny,
+     --device cuda: gen_blending_data -> train_blending, gen_rotate_data ->
+     train_rotate) in another
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -180,9 +190,12 @@ def phase_kernel(device) -> float:
     # the swap's masks at 1/3/5 iterations, the composite's 1024^2 masks at
     # 30, ragged tiles (37 rows, 300 and 3000 columns), swap_batch B=8's and
     # swap_stream batch 4's masks, and the --micro CLI's 128^2 composite
+    # the training data generators' at B=2 (the blending sample's 3b masks,
+    # generate_mask16's b masks)
     shapes = {(3, 256, 256, 1): (1, 3, 5), (1, 256, 256, 1): (1, 3, 5), (2, 37, 300, 1): (1, 3, 5),
               (1, 1024, 1024, 1): (30,), (2, 1024, 1024, 1): (30,), (1, 37, 3000, 1): (30,),
-              (24, 256, 256, 1): (5,), (12, 256, 256, 1): (5,), (1, 128, 128, 1): (30,)}
+              (24, 256, 256, 1): (5,), (12, 256, 256, 1): (5,), (1, 128, 128, 1): (30,),
+              (6, 256, 256, 1): (5,), (2, 256, 256, 1): (5,)}
     for si, (shape, iter_list) in enumerate(shapes.items()):
         for name, m in test_masks(shape, seed=si).items():
             for dtype in (torch.float32, torch.bfloat16):
@@ -761,7 +774,11 @@ def phase_checkpoint_serve(zoo32, imgs, device, card: str, swap_p50: float) -> d
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
-    del hf
+    # the server's request-handler class holds hf and, as every class, sits
+    # in a reference cycle: without a collection its bf16 zoo stays on the
+    # card through the later phases
+    del hf, srv
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -834,6 +851,422 @@ def phase_star(hf, device, card: str) -> float:
     return star_ms
 
 
+def _lively(tree, key=None):
+    """Norm gammas and StyleGAN modulation biases of a random tree shifted by
+    +1 (their real initial values), so signals carry through deep nets; the
+    tree is changed in place and returned."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "gamma" and isinstance(v, torch.Tensor):
+                v.add_(1.0)
+            elif k == "modulation":
+                v["b"].add_(1.0)
+            else:
+                _lively(v, k)
+    elif isinstance(tree, list):
+        for v in tree:
+            _lively(v)
+    return tree
+
+
+def _blocky(rng, b, n, ch=3, lo=-1.0, hi=1.0):
+    """[b,256,256,ch] images of n x n blocks of uniform values."""
+    x = rng.uniform(lo, hi, (b, n, n, ch)).astype(np.float32)
+    return np.repeat(np.repeat(x, 256 // n, 1), 256 // n, 2)
+
+
+def _event_ms(fn):
+    """(fn's result, its device ms between CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def row_abi(cfg, b: int):
+    """The JAX package's row shapes at `cfg` and batch b: the blending row
+    (hairfastgan_tpu/train/blending.py's batch layout) and the rotate pair
+    (train/datagen.generate_rotate_pair)."""
+    n, img, mask = cfg.stylegan.n_latent, (b, 256, 256, 3), (b, 256, 256, 1)
+    blend = {"color_s": (b, n, 512), "align_s": (b, n, 512),
+             "align_f": (b, 32, 32, cfg.stylegan.channels(32)), "color_i": img, "face_i": img,
+             "target_mask": mask, "HM_3E": mask, "HM_XE": mask}
+    return blend, {"W_from": (b, n, 512), "W_to": (b, n, 512), "I_from": img, "I_to": img}
+
+
+def phase_train(zoo32, device, card: str, cfg=None) -> dict:
+    """The training path at full width in f32 on phase 4's f32 zoo:
+    datagen (blending, seg16 blending, rotate pair, mask16) at B=2, 5
+    blending steps, 3 pose + 3 hair rotate steps (full G[0..8] at 1024^2,
+    STAR keypoints, IR-SE-50 identity), the train state's round trip, and a
+    micro blending step and rotate pose step on the card against the CPU."""
+    import shutil
+
+    import torch
+
+    from hairfastgan_torch.config import HairFastConfig
+    from hairfastgan_torch.models import bisenet
+    from hairfastgan_torch.models import star as S
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.params.checkpoint import restore_train_state, save_train_state
+    from hairfastgan_torch.train import datagen as D
+    from hairfastgan_torch.train.blending import make_blending_train_step
+    from hairfastgan_torch.train.common import MovingAverageLoss, tensor_leaves
+    from hairfastgan_torch.train.rotate import make_rotate_train_steps
+    from hairfastgan_torch.zoo import fill_random, init_arcface, init_star
+
+    out = {}
+    cfg = cfg or HairFastConfig()
+    blend_row, rotate_row = row_abi(cfg, 2)
+    tf32 = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    rng = np.random.default_rng(4)
+    size = cfg.stylegan.size
+    face, shape, color = (torch.from_numpy(rng.random((2, size, size, 3), np.float32)).to(device)
+                          for _ in range(3))
+    seg16 = fill_random(bisenet.init_bisenet(n_classes=16), 3, device)  # seg.pth's shapes
+    star = init_star(seed=0, device=device)
+
+    # datagen: ms per call (p50 of 3 after one), launches per call, row ABI
+    gens = {"generate_blending_sample": lambda: D.generate_blending_sample(
+                zoo32, face, shape, color, cfg),
+            "generate_blending_sample(seg16)": lambda: D.generate_blending_sample(
+                zoo32, face, shape, color, cfg, seg16_params=seg16),
+            "generate_mask16": lambda: D.generate_mask16(seg16, face * 2 - 1, cfg.smooth),
+            "generate_rotate_pair": lambda: D.generate_rotate_pair(zoo32, face, shape, cfg)}
+    rows = {}
+    for name, fn in gens.items():
+        rows[name] = counted(f"datagen {name}", fn, at_least=0)
+        ms = []
+        for _ in range(3):
+            ms.append(counted(f"datagen {name}", lambda: _event_ms(fn), at_least=0)[1])
+        n = LAUNCHES[f"datagen {name}"]
+        # align_images' soft masks and the blend masks: one [3b] launch each
+        want = {"generate_mask16": 1, "generate_rotate_pair": 0}.get(name, 2)
+        if n != want:
+            raise AssertionError(f"{name}: {n} dilate_erode launches per call, expected {want}")
+        out[name] = (statistics.median(ms), n)
+        log(f"[train] {name} B=2 f32: p50 {out[name][0]:.2f} ms (CUDA events, 3 calls after "
+            f"one), dilate_erode launches per call {n}  [{card}]")
+    for name, abi in (("generate_blending_sample", blend_row),
+                      ("generate_blending_sample(seg16)", blend_row),
+                      ("generate_rotate_pair", rotate_row)):
+        got = {k: tuple(v.shape) for k, v in rows[name].items()}
+        bad = [k for k, v in rows[name].items() if v.dtype != torch.float32
+               or not torch.isfinite(v).all()]
+        if got != abi or bad:
+            raise AssertionError(f"{name} rows {got} (non-finite or not f32: {bad}), "
+                                 f"expected {abi}")
+    hm = [tuple(t.shape) for t in rows["generate_mask16"]]
+    if hm != [(2, 256, 256, 1)] * 2:
+        raise AssertionError(f"generate_mask16 gave {hm}")
+    log(f"[train] rows of the JAX row ABI, finite f32: blending {blend_row}; rotate {rotate_row}")
+
+    def timed_steps(label, steps):
+        """Run (name, fn) steps; p50 ms per name by CUDA events, peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        resident = torch.cuda.memory_allocated(device) / 2 ** 30
+        ms, auxs = collections.defaultdict(list), []
+        for name, fn in steps:
+            aux, t = _event_ms(fn)
+            ms[name].append(t)
+            auxs.append(aux)
+            if not all(torch.isfinite(v).all() for v in aux.values()):
+                raise AssertionError(f"{label} {name}: non-finite {aux}")
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        p50 = {k: statistics.median(v[1:]) for k, v in ms.items()}  # the first is a warm-up
+        return p50, peak, resident, auxs
+
+    def profiled_step(fn):
+        """(device events, device busy ms) of one call of fn (torch.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(ev), sum(e.device_time for e in ev) / 1e3
+
+    def check_frozen(label, frozen, snapshot, params, before):
+        moved = [not torch.equal(a, b) for a, b in zip(tensor_leaves(params), before)]
+        untouched = all(t.grad is None and not t.requires_grad and torch.equal(t, s)
+                        for t, s in zip(tensor_leaves(frozen), snapshot))
+        if not all(moved) or not untouched:
+            raise AssertionError(f"{label}: {sum(moved)}/{len(moved)} trainable leaves moved; "
+                                 f"frozen leaves untouched: {untouched}")
+
+    # 5 blending steps at B=2 on the generator's rows
+    frozen = {"generator": zoo32["generator"], "clip": zoo32["blending"]["clip"]}
+    params = {"mods": map_tree(zoo32["blending"]["mods"], lambda _, t: t.clone())}
+    snapshot = [t.clone() for t in tensor_leaves(frozen)]
+    before = [t.clone() for t in tensor_leaves(params)]
+    step, tx = make_blending_train_step(frozen, cfg)
+    opt = tx.init(params)
+    row = rows["generate_blending_sample"]
+    batch = tuple(row[k] for k in blend_row)
+    p50, peak, resident, auxs = timed_steps("blending", [
+        ("step", lambda: step(params, opt, *batch)[2]) for _ in range(6)])
+    check_frozen("blending", frozen, snapshot, params, before)
+    out["blend"] = (p50["step"], peak, resident)
+    log(f"[train] blending: 1 + 5 steps B=2 f32 at 1024^2: step p50 {p50['step']:.2f} ms (CUDA "
+        f"events, the 5 after the first); losses {[round(float(a['loss']), 5) for a in auxs]}, "
+        f"grad_norm {[round(float(a['grad_norm']), 5) for a in auxs]}; peak memory {peak:.2f} "
+        f"GiB, of which {resident:.2f} GiB resident before; mods moved, generator and CLIP "
+        f"untouched with no .grad; {tf32}  [{card}]")
+    del snapshot, before, opt, params
+
+    # 3 pose + 3 hair rotate steps (each after one warm-up of its kind)
+    frozen = {"generator": zoo32["generator"], "arcface": init_arcface(seed=1, device=device),
+              "star": star}
+    params = map_tree(zoo32["rotate"], lambda _, t: t.clone())
+    rot = rows["generate_rotate_pair"]
+    with torch.no_grad():
+        kp_to = S.keypoints_256(star, rot["I_to"])
+    pose_b = (rot["I_from"], kp_to, rot["W_from"], rot["W_to"])
+    w_mix = torch.cat([rot["W_to"][:, :6], rot["W_from"][:, 6:]], dim=1)
+    hair_b = (w_mix, rot["W_from"])
+    snapshot = [t.clone() for t in tensor_leaves(frozen)]
+    before = [t.clone() for t in tensor_leaves(params)]
+    pose, hair, tx = make_rotate_train_steps(
+        frozen, lambda fr, img: S.keypoints_256(fr["star"], img), cfg)
+    opt = tx.init(params)
+    mal = MovingAverageLoss({"mse_points": 6.0, "mse_latents": 2.0})
+
+    def pose_step():
+        aux = pose(params, opt, *pose_b, mal.multipliers(("mse_points", "arc_face")))[2]
+        mal.update({k: float(aux[k]) for k in ("mse_points", "arc_face")})
+        return aux
+
+    def hair_step():
+        aux = hair(params, opt, *hair_b, mal.multipliers(("mse_latents",)))[2]
+        mal.update({"mse_latents": float(aux["mse_latents"])})
+        return aux
+
+    p50, peak, resident, auxs = timed_steps("rotate", [
+        s for _ in range(4) for s in (("pose", pose_step), ("hair", hair_step))])
+    check_frozen("rotate", frozen, snapshot, params, before)
+    out["rotate"] = (p50["pose"], p50["hair"], peak, resident)
+    log(f"[train] rotate: 1 + 3 pose and 1 + 3 hair steps alternating, B=2 f32, full G[0..8] "
+        f"at 1024^2 + STAR + IR-SE-50: pose step p50 {p50['pose']:.2f} ms, hair step p50 "
+        f"{p50['hair']:.2f} ms (CUDA events, the 3 after the first of each); pose losses "
+        f"{[round(float(a['loss']), 4) for a in auxs[::2]]}; peak memory {peak:.2f} GiB, of "
+        f"which {resident:.2f} GiB resident before; rotate mods moved, generator, IR-SE-50 and "
+        f"STAR untouched with no .grad; {tf32}  [{card}]")
+
+    # one more pose and hair step under torch.profiler: device events and
+    # busy time per step, beside the step's p50
+    for name, fn in (("pose", pose_step), ("hair", hair_step)):
+        n, busy = profiled_step(fn)
+        out[f"profile_{name}"] = (n, busy, p50[name])
+        log(f"[train] rotate {name} step under torch.profiler: {n} device events, "
+            f"{busy:.2f} ms device busy of the {p50[name]:.2f} ms step p50 (busy share "
+            f"{busy / p50[name]:.3f})  [{card}]")
+
+    # the train state's round trip onto the card
+    tmp = tempfile.mkdtemp(prefix="train_state_")
+    try:
+        sd = opt.state_dict()
+        save_train_state(Path(tmp) / "last", params, sd, 8)
+        state = restore_train_state(Path(tmp) / "last", device=device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    moments = [(i, k) for i, s in sd["state"].items() for k in ("exp_avg", "exp_avg_sq", "step")]
+    equal = (state["step"] == 8 and all(torch.equal(a, b) and a.device == b.device for a, b in
+                                        zip(tensor_leaves(state["params"]), tensor_leaves(params)))
+             and all(torch.equal(state["opt_state"]["state"][i][k].cpu(), sd["state"][i][k].cpu())
+                     for i, k in moments))
+    if not equal:
+        raise AssertionError("the restored train state differs from the saved one")
+    log(f"[train] train state: saved and restored onto {device}, {len(tensor_leaves(params))} "
+        f"params and {len(moments)} Adam moment/step tensors equal leaf for leaf")
+    del opt, params, snapshot, before
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"] = _train_card_vs_cpu(device)
+    return out
+
+
+# Limit on max |d grad| / max |grad| between the card's f32 STAR pose step
+# and the CPU's float64 one. The f32 gradient of a random STAR strays from
+# float64 by itself: on an x86 CPU, the f32 readings over STAR seeds 0-7 of
+# the micro step below ran 4.5e-5 to 1.73e-3 (the `train` phase prints them
+# each run), so the limit is about twice the largest.
+STAR_F32_GRAD_LIMIT = 4e-3
+
+
+def _train_card_vs_cpu(device) -> dict:
+    """One blending step and two rotate pose steps at a micro config (64^2
+    generator at 128 channels, CLIP 64 x 2, IR-SE-50 at width 0.25), the
+    same weights and inputs on the card and the CPU, TF32 off: max |d loss|
+    / |loss|, max |d grad| / max |grad| (limit 1e-4 each) and max |d param|
+    after the Adam step (limit lr/5).
+
+    The IR-SE backbone's output BN is set to the statistics of its
+    embeddings of a few images: a random backbone embeds every image along
+    nearly one direction, and the gradient of 1 - cos at cos ~ 1 is f32
+    noise. One pose step reads keypoints off a pixel grid; the other runs
+    STAR (2 stacks x 2 levels x 8 channels, seed 2). A random STAR's f32
+    gradient strays from float64 by up to ~1e-3 (its heatmaps are nearly
+    flat, so a landmark's gradient is a small difference of large sums),
+    so two f32 runs need not agree within 1e-4. The STAR step is therefore
+    held twice against a float64 run on the CPU: the card's float64 run at
+    the limits above, and the card's f32 run at STAR_F32_GRAD_LIMIT on the
+    gradients. The CPU's own f32 gap to float64 over STAR seeds 0-7 is
+    printed beside it.
+
+    Gradients are compared relative to max |grad|, so the loss scale drops
+    out of them. The pose steps run at 1e-3 of MovingAverageLoss's (0.7,
+    1.3): Adam's first step moves a coordinate by lr * g / (|g| + 1e-8), so
+    at full scale the few coordinates whose gradient is ~1e-8 move by up to
+    lr on a sign flip of their f32 noise; at 1e-3 of it every coordinate's
+    step stays linear in g."""
+    import torch
+
+    from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+    from hairfastgan_torch.losses.identity import init_irse_backbone
+    from hairfastgan_torch.models import clip_vit, encoders, star, stylegan2
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.train import blending as TB
+    from hairfastgan_torch.train import rotate as TR
+    from hairfastgan_torch.train.common import tensor_leaves
+    from hairfastgan_torch.zoo import fill_random
+
+    lr = 1e-3
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=64, max_channels=128))
+    clip = clip_vit.init_clip_image_tower(width=64, layers=2, embed_dim=512)
+    w = _lively(fill_random({
+        "generator": stylegan2.init_generator_params(cfg.stylegan), "clip": clip,
+        "blend": {"mods": encoders.init_blending_model(clip)["mods"]},
+        "rotate": encoders.init_rotate_model(),
+        "arcface": init_irse_backbone(width=0.25)}, 2))
+
+    def micro_star(seed):
+        return _lively(fill_random(star.init_star(nstack=2, nlevels=2, channels=8), seed))
+
+    w["star"] = micro_star(2)
+    rng = np.random.default_rng(12)
+    n, b = cfg.stylegan.n_latent, 2
+    blend_b = (rng.standard_normal((b, n, 512), np.float32) * 0.3,
+               rng.standard_normal((b, n, 512), np.float32) * 0.3,
+               rng.standard_normal((b, 32, 32, 128), np.float32) * 0.3,
+               _blocky(rng, b, 4), _blocky(rng, b, 4),
+               (_blocky(rng, b, 8, 1, 0, 1) > 0.3).astype(np.float32),
+               (_blocky(rng, b, 8, 1, 0, 1) > 0.5).astype(np.float32),
+               (_blocky(rng, b, 8, 1, 0, 1) > 0.5).astype(np.float32))
+    pose_b = (_blocky(rng, b, 8, 3, 0, 1), rng.uniform(0, 255, (b, 76, 2)).astype(np.float32),
+              rng.standard_normal((b, n, 512), np.float32) * 0.5,
+              rng.standard_normal((b, n, 512), np.float32) * 0.5)
+
+    arc = w["arcface"]
+    arc["bn_feat"] = {k: torch.zeros_like(v) if k in ("beta", "mean") else torch.ones_like(v)
+                      for k, v in arc["bn_feat"].items()}
+    with torch.no_grad():
+        e = TR._arcface_embed({"arcface": arc}, torch.from_numpy(
+            np.concatenate([pose_b[0], _blocky(rng, 4, 8, 3, 0, 1)])))
+    arc["bn_feat"].update(mean=e.mean(0), var=e.var(0, unbiased=False) + 1e-4)
+
+    def grid_kp(fr, img):  # 76 pixel values of a 9 x 9 grid, as coordinates
+        return img[:, ::29, ::29, :2].reshape(img.shape[0], -1, 2)[:, :76] * 255.0
+
+    def star_kp(fr, img):
+        return star.keypoints_256(fr["star"], img)
+
+    def pose_case(kp):
+        return (("generator", "arcface", "star"), "rotate", pose_b,
+                lambda p, fr, bt: TR.rotate_pose_loss(p, fr, bt, kp, cfg, mults),
+                lambda fr: TR.make_rotate_train_steps(fr, kp, cfg, lr=lr)[::2], (mults,))
+
+    mults = (7e-4, 1.3e-3)  # 1e-3 of (0.7, 1.3): see the docstring
+    cases = {  # name: (frozen, params, batch, loss_fn, step maker, step's extra args)
+        "blending step": (("generator", "clip"), "blend", blend_b,
+                          lambda p, fr, bt: TB.blending_loss(p, fr, bt, cfg),
+                          lambda fr: TB.make_blending_train_step(fr, cfg, lr=lr), ()),
+        "rotate pose step, grid keypoints": pose_case(grid_kp),
+        "rotate pose step, STAR": pose_case(star_kp)}
+
+    def run(name, dev, dt, star_p=None, with_step=True):
+        """(loss, grads, params after one Adam step) of case `name` on `dev`
+        in `dt`, as float64 on the CPU."""
+        frozen_keys, params_key, batch_np, loss_fn, make, extra = cases[name]
+        src = w if star_p is None else dict(w, star=star_p)
+        fr = map_tree({k: src[k] for k in frozen_keys}, lambda _, t: t.to(dev, dt).clone())
+        p = map_tree(src[params_key], lambda _, t: t.to(dev, dt).clone())
+        batch = tuple(torch.from_numpy(x).to(dev, dt) for x in batch_np)
+        leaves = tensor_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = loss_fn(p, fr, batch)
+        grads = [g.cpu().double() for g in torch.autograd.grad(loss, leaves)]
+        for t in leaves:
+            t.requires_grad_(False)
+        if not with_step:
+            return float(loss.detach()), grads, None
+        step, tx = make(fr)
+        p, _, _ = step(p, tx.init(p), *batch, *extra)
+        return float(loss.detach()), grads, [t.detach().cpu().double() for t in tensor_leaves(p)]
+
+    def gaps(a, b):
+        """max |d loss| / |loss|, max |d grad| / max |grad|, max |d param| of a
+        against b."""
+        (la, ga, pa), (lb, gb, pb) = a, b
+        d_grad = max(float((x - y).abs().max()) for x, y in zip(ga, gb)) / max(
+            float(y.abs().max()) for y in gb)
+        d_param = None if pa is None else max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        return abs(la - lb) / abs(lb), d_grad, d_param
+
+    f32, f64 = torch.float32, torch.float64
+    held = (1e-4, 1e-4, lr / 5)
+    checks = {  # name: [(label, run a, run b, limits on (loss, grads, params) or None)]
+        "blending step": [("card vs CPU, f32", (device, f32), ("cpu", f32), held)],
+        "rotate pose step, grid keypoints": [
+            ("card vs CPU, f32", (device, f32), ("cpu", f32), held)],
+        "rotate pose step, STAR": [
+            ("card f64 vs CPU f64", (device, f64), ("cpu", f64), held),
+            ("card f32 vs CPU f64", (device, f32), ("cpu", f64),
+             (1e-4, STAR_F32_GRAD_LIMIT, lr / 5)),
+            ("CPU f32 vs CPU f64", ("cpu", f32), ("cpu", f64), None),
+            ("card f32 vs CPU f32", (device, f32), ("cpu", f32), None)]}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, rows in checks.items():
+            res = {}
+            for _, a, b, _ in rows:
+                for dev, dt in (a, b):
+                    if (str(dev), dt) not in res:
+                        res[str(dev), dt] = run(name, dev, dt)
+            for label, (da, ta), (db, tb), limits in rows:
+                d = out[f"{name}: {label}"] = gaps(res[str(da), ta], res[str(db), tb])
+                log(f"[train] {name} (micro, TF32 off), {label}: loss "
+                    f"{res[str(db), tb][0]:.6f}, max |d loss| {d[0]:.2e} of it; max |d grad| "
+                    f"{d[1]:.2e} of max |grad|; max |d param| after the Adam step {d[2]:.2e} "
+                    f"(lr {lr}); " + ("not held" if limits is None else f"limits {limits}"))
+                if limits is not None and any(x > lim for x, lim in zip(d, limits)):
+                    raise AssertionError(f"{name}, {label}: {d} over {limits}")
+        # the CPU's own f32 gap to float64 over STAR seeds: what the f32 limit rests on
+        spread = {2: out["rotate pose step, STAR: CPU f32 vs CPU f64"][1]}
+        for seed in (0, 1, 3, 4, 5, 6, 7):
+            sp = micro_star(seed)
+            spread[seed] = gaps(*(run("rotate pose step, STAR", "cpu", dt, sp, with_step=False)
+                                  for dt in (f32, f64)))[1]
+        out["star_f32_spread"] = spread
+        log(f"[train] STAR pose step, CPU f32 vs CPU f64 max |d grad| / max |grad| by STAR "
+            f"seed: {', '.join(f'{k}: {v:.2e}' for k, v in sorted(spread.items()))}; the card's "
+            f"f32 run is held at {STAR_F32_GRAD_LIMIT:g}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return out
+
+
 def phase_cli(card: str) -> None:
     """python -m hairfastgan_torch.main --micro --poisson on the card, in a
     subprocess that reports the kernel's launches."""
@@ -865,6 +1298,62 @@ def phase_cli(card: str) -> None:
         f"{n}  [{card}]")
     if n < 3 or shape != (128, 128, 3):
         raise AssertionError(f"CLI: {n} launches, {shape}")
+    phase_train_cli(card)
+
+
+def phase_train_cli(card: str) -> None:
+    """The four training scripts with --device cuda in one subprocess:
+    gen_blending_data --tiny (4 triples) -> train_blending --tiny, and
+    gen_rotate_data --tiny --no_keypoints (4 pairs) -> train_rotate --tiny
+    --no_keypoints, 1 epoch each at batch 2; best/last train states must
+    exist. Reports the kernel's launches and shapes."""
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rng = np.random.default_rng(13)
+        (d / "imgs").mkdir()
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (200, 160, 3), dtype=np.uint8)).save(
+                d / "imgs" / f"{i}.png")
+        common = ["--device", "cuda", "--zoo_dir", str(d / "nozoo")]
+        train = ["--tiny", "--epochs", "1", "--batch_size", "2", "--test_frac", "0.5"]
+        runs = [
+            ("gen_blending_data", ["--tiny", "--input_dir", str(d / "imgs"), "--n_random", "4",
+                                   "--out_dir", str(d / "blend")]),
+            ("train_blending", train + ["--data_dir", str(d / "blend"), "--ckpt_dir",
+                                        str(d / "ckpt_b"), "--log", str(d / "b.jsonl")]),
+            ("gen_rotate_data", ["--tiny", "--no_keypoints", "--input_dir", str(d / "imgs"),
+                                 "--n_pairs", "4", "--pose_dir", str(d / "pose"),
+                                 "--hair_dir", str(d / "hair")]),
+            ("train_rotate", train + ["--no_keypoints", "--pose_dir", str(d / "pose"),
+                                      "--hair_dir", str(d / "hair"), "--ckpt_dir",
+                                      str(d / "ckpt_r"), "--log", str(d / "r.jsonl")])]
+        code = ["import json, runpy, sys, time; import chip_smoke as C",
+                "from hairfastgan_torch.ops import morphology as M; C.record_shapes()"]
+        for mod, argv in runs:
+            full = [mod] + argv + common
+            code += [f"t0 = time.perf_counter(); M.dilate_erode.launches = 0; sys.argv = {full!r}",
+                     f"runpy.run_module('hairfastgan_torch.scripts.{mod}', run_name='__main__')",
+                     f"print('RAN', {mod!r}, M.dilate_erode.launches, "
+                     "round(time.perf_counter() - t0, 2))"]
+        code.append("print('SHAPES', json.dumps(sorted(C.SEEN)))")
+        res = subprocess.run([sys.executable, "-c", "\n".join(code)], capture_output=True,
+                             text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        if res.returncode != 0:
+            raise AssertionError(f"training CLIs failed ({res.returncode}): {res.stderr[-3000:]}")
+        ran = [line.split()[1:] for line in res.stdout.splitlines() if line.startswith("RAN")]
+        SEEN.update((tuple(s), t, i) for s, t, i in json.loads(
+            res.stdout.split("SHAPES")[-1]))
+        states = sorted(str(p.relative_to(d)) for p in d.glob("ckpt_*/*/train_state.pt"))
+        n_rows = (len(list((d / "blend").glob("*.npz"))), len(list((d / "pose").glob("*.npz"))))
+    for mod, n, s in ran:
+        LAUNCHES[f"CLI {mod} --tiny"] = int(n)
+    log(f"[cli] training scripts --tiny --device cuda (module, dilate_erode launches, seconds): "
+        f"{ran}; rows {n_rows}; train states {states}  [{card}]")
+    # gen_blending_data: align_images' and the blend masks' launch per row
+    if len(ran) != 4 or n_rows != (4, 4) or len(states) != 4 or int(ran[0][1]) != 8:
+        raise AssertionError(f"training CLIs: ran {ran}, rows {n_rows}, states {states}")
 
 
 def main() -> int:
@@ -907,6 +1396,7 @@ def main() -> int:
     phase("host", phase_host_steps, hf, imgs, device, card)
     serving = phase("serving", phase_serving, hf, hf32, imgs, device, card)
     ckpt = phase("checkpoint_serve", phase_checkpoint_serve, hf32.zoo, imgs, device, card, p50)
+    train = phase("train", phase_train, hf32.zoo, device, card)
     del hf32
     star_ms = phase("star", phase_star, hf, device, card)
     phase("cli", phase_cli, card)
@@ -927,12 +1417,18 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "ms_1024x30": kc_ms, "plain_ms_1024x30": pc_ms, "bound_ms_1024x30": bound_c,
-        "bound_by_1024x30": bound_by_c, "launches_by_path": LAUNCHES}]}
+        "bound_by_1024x30": bound_by_c, "launches_by_path": LAUNCHES,
+        "launch_keys": [[list(k[0]), k[1], k[2]] for k in sorted(SEEN)]}]}
     log(f"[summary] phase seconds {phase_s}; B=8 {serving['batch8'][0]:.2f} transfers/s; "
         f"composite {serving['composite'][0]:.2f} ms; STAR pass {star_ms:.2f} ms")
     log(f"[summary] card: {card}; swap p50 {p50:.2f} ms; peak {peak:.2f} GiB; zoo file save "
         f"{ckpt['save_s']:.2f} s, load {ckpt['load_s']:.2f} s; /swap request p50 "
         f"{ckpt['request_p50_ms']:.1f} ms")
+    log(f"[summary] training, B=2 f32 at 1024^2: blending step p50 {train['blend'][0]:.2f} ms "
+        f"(peak {train['blend'][1]:.2f} GiB), rotate pose step p50 {train['rotate'][0]:.2f} ms, "
+        f"hair step {train['rotate'][1]:.2f} ms (peak {train['rotate'][2]:.2f} GiB); datagen "
+        f"p50 ms, launches: " + ", ".join(f"{k} {v[0]:.2f}, {v[1]}" for k, v in train.items()
+                                          if k.startswith("generate")))
     log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
         f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
         f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")

@@ -21,6 +21,7 @@ Tensor = torch.Tensor
 SEG_MEAN = (0.485, 0.456, 0.406)
 SEG_STD = (0.229, 0.224, 0.225)
 CELEBA_HAIR = 13
+SEG16_HAIR = 10  # hair in the 16-class seg.pth parser's raw order (training masks)
 # celeba[i] = raw[PERM[i]] (my_parsing_util.py:90-95 name matching)
 FACE_PARSING_TO_CELEBA = (0, 1, 10, 6, 4, 5, 2, 3, 7, 8, 11, 12, 13, 17, 18, 9, 15, 14, 16)
 

@@ -69,10 +69,15 @@ def init_irse_body(se: bool = True, width: float = 1.0):
             "body": [init_bottleneck_ir(i, d, s, se) for i, d, s in _blocks_50(width)]}
 
 
+def irse_stem(p, x: Tensor) -> Tensor:
+    """conv3x3 -> BN -> PReLU of the IR-SE body's input layer."""
+    return prelu(p["input"]["prelu"],
+                 batch_norm(p["input"]["bn"], conv2d_p(p["input"]["conv"], x, padding=1)))
+
+
 def irse_pyramid(p, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Stem + body, returning (c1, c2, c3) at body indices 6/20/23."""
-    x = prelu(p["input"]["prelu"],
-              batch_norm(p["input"]["bn"], conv2d_p(p["input"]["conv"], x, padding=1)))
+    x = irse_stem(p, x)
     feats = {}
     for i, blk in enumerate(p["body"]):
         x = bottleneck_ir(blk, x)

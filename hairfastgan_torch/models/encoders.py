@@ -70,6 +70,11 @@ def clip_image_embed_nchw(clip_params, img_norm: Tensor) -> Tensor:
     return clip_encode_image_nchw(clip_params, clip_preprocess_nchw(img_norm * 0.5 + 0.5))
 
 
+def clip_image_embed(clip_params, img_norm: Tensor) -> Tensor:
+    """[-1,1] NHWC image -> CLIP embedding (the JAX package's layout)."""
+    return clip_image_embed_nchw(clip_params, img_norm.permute(0, 3, 1, 2))
+
+
 def blending_model(p, latent_face: Tensor, latent_color: Tensor,
                    target_face: Tensor, hair_color: Tensor) -> Tensor:
     """S1[:,6:], S3[:,6:], masked face image, masked color image (NHWC,

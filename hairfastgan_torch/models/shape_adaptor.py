@@ -46,7 +46,8 @@ def pos_embedding(img_size: int = INPUT_SIZE, order: int = POS_ORDER) -> np.ndar
 
 @functools.lru_cache(maxsize=8)
 def _pos_on(device: torch.device, dtype: torch.dtype) -> Tensor:
-    return torch.from_numpy(pos_embedding()).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):  # a normal tensor in the cache (ops/resample._on_device)
+        return torch.from_numpy(pos_embedding()).to(device=device, dtype=dtype)
 
 
 def ctrlhair_layer_norm(p, x: Tensor, eps: float = 1e-5) -> Tensor:

@@ -6,8 +6,9 @@ Conventions (the bridge, params/bridge.py, produces them from the JAX zoo):
   * linear weights are [out, in] (JAX [in, out] -> .T)
   * params are plain dicts of tensors
 
-Norms keep the JAX package's precision convention: statistics fold in f32,
-the map-sized affine runs in the map's dtype.
+Norms keep the JAX package's precision convention: statistics fold in f32
+(f64 for an f64 map, so that a float64 run is a reference for the f32
+one), the map-sized affine runs in the map's dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ import torch.nn.functional as F
 
 Tensor = torch.Tensor
 Padding = Union[int, Tuple[int, int], Sequence[Tuple[int, int]]]
+
+
+def fold_dtype(x: Tensor) -> torch.dtype:
+    """The dtype statistics of `x` fold in: f32, or f64 for an f64 map."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
 def linear(p, x: Tensor) -> Tensor:
@@ -81,22 +87,24 @@ def conv2d_p(p, x: Tensor, **kw) -> Tensor:
 
 def batch_norm(p, x: Tensor, eps: float = 1e-5) -> Tensor:
     """Inference BatchNorm over dim 1 with running stats (scale/bias folded
-    in f32, applied in x.dtype)."""
-    scale = p["gamma"].float() * torch.rsqrt(p["var"].float() + eps)
-    bias = p["beta"].float() - p["mean"].float() * scale
+    in fold_dtype, applied in x.dtype)."""
+    fd = fold_dtype(x)
+    scale = p["gamma"].to(fd) * torch.rsqrt(p["var"].to(fd) + eps)
+    bias = p["beta"].to(fd) - p["mean"].to(fd) * scale
     return (x * _channel_view(scale.to(x.dtype), x.ndim)
             + _channel_view(bias.to(x.dtype), x.ndim))
 
 
 def _norm_apply(x: Tensor, mean: Tensor, var: Tensor, gamma, beta,
                 eps: float) -> Tensor:
-    """y = (x - mean) * rsqrt(var + eps) [* gamma] [+ beta]; f32 fold, map in x.dtype."""
+    """y = (x - mean) * rsqrt(var + eps) [* gamma] [+ beta]; folded in the
+    statistics' dtype, map in x.dtype."""
     scale = torch.rsqrt(var + eps)
     if gamma is not None:
-        scale = scale * gamma.float()
+        scale = scale * gamma.to(var.dtype)
     shift = -mean * scale
     if beta is not None:
-        shift = shift + beta.float()
+        shift = shift + beta.to(var.dtype)
     return x * scale.to(x.dtype) + shift.to(x.dtype)
 
 
@@ -105,7 +113,7 @@ def layer_norm(x: Tensor, dims, gamma=None, beta=None, eps: float = 1e-5) -> Ten
     shaped like those dims."""
     if isinstance(dims, int):
         dims = (dims,)
-    xf = x.float()
+    xf = x.to(fold_dtype(x))
     mean = xf.mean(dim=dims, keepdim=True)
     var = (xf - mean).square().mean(dim=dims, keepdim=True)
     return _norm_apply(x, mean, var, gamma, beta, eps)
@@ -113,7 +121,7 @@ def layer_norm(x: Tensor, dims, gamma=None, beta=None, eps: float = 1e-5) -> Ten
 
 def instance_norm(x: Tensor, eps: float = 1e-5) -> Tensor:
     """InstanceNorm2d over the spatial dims of NCHW, affine-free (SEAN's use)."""
-    xf = x.float()
+    xf = x.to(fold_dtype(x))
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
     return _norm_apply(x, mean, var, None, None, eps)

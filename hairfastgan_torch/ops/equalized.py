@@ -9,14 +9,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from hairfastgan_torch.ops.basic import fold_dtype
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 
 
 def pixel_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """x * rsqrt(mean(x^2, dim) + 1e-8), computed in f32. RotateModel and the
+    """x * rsqrt(mean(x^2, dim) + 1e-8), computed in f32 (f64 for f64). RotateModel and the
     blending/PostProcess encoders normalize [B, rows, 512] over dim=1 (the
     rows), as torch's PixelNorm does on 3-D input."""
-    xf = x.float()
+    xf = x.to(fold_dtype(x))
     n = xf * torch.rsqrt(xf.square().mean(dim=dim, keepdim=True) + 1e-8)
     return n.to(x.dtype)
 

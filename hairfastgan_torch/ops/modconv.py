@@ -23,15 +23,18 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from hairfastgan_torch.ops.basic import fold_dtype
 from hairfastgan_torch.ops.equalized import equal_linear
 from hairfastgan_torch.ops.upfirdn2d import blur2d
 
 
 def _demod_coeff(w: torch.Tensor, s: torch.Tensor, fan_scale: float,
                  eps: float = 1e-8) -> torch.Tensor:
-    """demod[b,o] = rsqrt(sum_{i,kh,kw} (fan_scale*w[o,i,kh,kw]*s[b,i])^2 + eps), f32."""
-    w2 = w.float().square().sum(dim=(2, 3)).transpose(0, 1)  # [I, O]
-    q = s.float().square() @ w2  # [B, O]
+    """demod[b,o] = rsqrt(sum_{i,kh,kw} (fan_scale*w[o,i,kh,kw]*s[b,i])^2 + eps),
+    in fold_dtype(s)."""
+    fd = fold_dtype(s)
+    w2 = w.to(fd).square().sum(dim=(2, 3)).transpose(0, 1)  # [I, O]
+    q = s.to(fd).square() @ w2  # [B, O]
     return torch.rsqrt(q * (fan_scale * fan_scale) + eps)
 
 

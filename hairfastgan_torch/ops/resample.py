@@ -97,9 +97,13 @@ def bicubic_downsample_matrix(in_size: int, factor: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _on_device(kind: str, args: Tuple, device: torch.device,
                dtype: torch.dtype) -> Tensor:
+    """The cached matrix of `kind` on the device. Made outside inference
+    mode even under torch.inference_mode(): an inference tensor in the cache
+    would make every later autograd pass through it (training) raise."""
     make = {"resize": resize_matrix, "down": bicubic_downsample_matrix,
             "nearest": _nearest_index}[kind]
-    return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(*args)).to(device=device, dtype=dtype)
 
 
 def _apply_axis_matrices(x: Tensor, ah: Tensor, aw: Tensor) -> Tensor:

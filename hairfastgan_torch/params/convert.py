@@ -171,6 +171,14 @@ def _t_trunk(sd: SD, stem: Sequence[str], stages: Sequence[str]) -> dict:
                        for st in stages]}
 
 
+def convert_arcface(sd: SD) -> dict:
+    """insightface IResNet ArcFace state dict (conv1/bn1/prelu, layer1-4,
+    bn2, fc, features) -> the JAX package's iresnet.init_arcface tree."""
+    return {"trunk": _t_trunk(sd, stem=("conv1", "bn1", "prelu"),
+                              stages=("layer1", "layer2", "layer3", "layer4")),
+            "bn2": t_bn(sd, "bn2"), "fc": t_linear(sd, "fc"), "features_bn": t_bn(sd, "features")}
+
+
 def _t_content_layer(sd: SD, name: str, stride) -> dict:
     # Sequential(BN, Conv, BN, PReLU, Conv, BN) (Net.py:352-360)
     return {"bn0": t_bn(sd, f"{name}.0"), "conv1": t_conv(sd, f"{name}.1"),

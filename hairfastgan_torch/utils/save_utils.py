@@ -37,6 +37,19 @@ def save_vis_mask(out_dir: Path, stage: str, name: str, labels) -> None:
     save_image01(Path(out_dir) / stage / name, rgb.astype(np.float32) / 255.0)
 
 
+def image_grid(images, cols: int = 10) -> np.ndarray:
+    """Tile [N,H,W,3] [0,1] images into one grid image (the reference's
+    validation grids, utils/train.py image_grid)."""
+    arr = np.asarray(images)
+    n, h, w, c = arr.shape
+    rows = -(-n // cols)
+    grid = np.zeros((rows * h, cols * w, c), arr.dtype)
+    for i in range(n):
+        r, col = divmod(i, cols)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = arr[i]
+    return grid
+
+
 def save_latents(out_dir: Path, stage: str, name: str, **latents) -> None:
     path = Path(out_dir) / stage / name
     path.parent.mkdir(parents=True, exist_ok=True)

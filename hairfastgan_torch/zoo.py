@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+from hairfastgan_torch.losses import identity
 from hairfastgan_torch.models import bisenet, clip_vit, e4e, encoders, iresnet, sean, star
 from hairfastgan_torch.models import shape_adaptor as sa
 from hairfastgan_torch.models import stylegan2
@@ -149,6 +150,35 @@ def init_star(seed: int = 0, device="cpu", **kw) -> Dict:
     stacks x 4 levels x 256 channels by default) for zoo["star"]. Random
     zoos carry no STAR; the JAX package adds it only from a checkpoint."""
     return fill_random(star.init_star(**kw), seed, device)
+
+
+def init_arcface(seed: int = 0, device="cpu", width: float = 1.0) -> Dict:
+    """Random IR-SE-50 identity backbone (losses/identity.init_irse_backbone's
+    tree) for the rotate trainer's frozen["arcface"]."""
+    return fill_random(identity.init_irse_backbone(width=width), seed, device)
+
+
+def blending_train_tiny(seed: int = 0, device="cpu"):
+    """(frozen, params, cfg) of train_blending --tiny, with the shapes of
+    the JAX CLI's --tiny trees: a 128^2 generator at max_channels 512 (the
+    blend renders G[4..8] from the structural 512-channel F at 32^2), a
+    CLIP tower of width 64 x 2 layers, and the blending encoder's mods."""
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=128))
+    clip = clip_vit.init_clip_image_tower(width=64, layers=2, embed_dim=512)
+    t = fill_random({"generator": stylegan2.init_generator_params(cfg.stylegan), "clip": clip,
+                     "mods": encoders.init_blending_model(clip)["mods"]}, seed, device)
+    return {"generator": t["generator"], "clip": t["clip"]}, {"mods": t["mods"]}, cfg
+
+
+def rotate_train_tiny(seed: int = 0, device="cpu"):
+    """(frozen, params, cfg) of train_rotate --tiny, with the shapes of the
+    JAX CLI's --tiny trees: a 128^2 generator at max_channels 128, the
+    full-width IR-SE-50 backbone and the rotate encoder."""
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=128, max_channels=128))
+    t = fill_random({"generator": stylegan2.init_generator_params(cfg.stylegan),
+                     "arcface": identity.init_irse_backbone(), "rotate": encoders.init_rotate_model()},
+                    seed, device)
+    return {"generator": t["generator"], "arcface": t["arcface"]}, t["rotate"], cfg
 
 
 def cast_zoo(zoo: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:

@@ -203,6 +203,40 @@ def test_equalized_and_act(op):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("op", ["batch_norm", "layer_norm", "instance_norm", "pixel_norm",
+                                "demod"])
+def test_norms_fold_in_f64_for_f64_maps(op):
+    """An f64 map's statistics fold in f64 (f32 maps keep the f32 fold), so
+    a float64 run is a reference for the f32 one: each op matches a numpy
+    float64 formula within 1e-9 on maps of mean ~100 and spread ~1e-2,
+    where an f32 fold would be off by ~1e-4."""
+    rng = np.random.default_rng(11)
+    x = 100.0 + rng.standard_normal((2, 3, 8, 8)) * 1e-2
+    c = rng.uniform(0.5, 1.5, (4, 3))  # gamma, beta, mean, var per channel
+    if op == "batch_norm":
+        p = {k: torch.from_numpy(v) for k, v in zip(("gamma", "beta", "mean", "var"), c)}
+        got = tb.batch_norm(p, torch.from_numpy(x))
+        v = lambda a: a[:, None, None]  # noqa: E731
+        ref = (x - v(c[2])) * v(c[0]) / np.sqrt(v(c[3]) + 1e-5) + v(c[1])
+    elif op == "layer_norm":
+        got = tb.layer_norm(torch.from_numpy(x), (-2, -1))
+        m, var = x.mean((-2, -1), keepdims=True), x.var((-2, -1), keepdims=True)
+        ref = (x - m) / np.sqrt(var + 1e-5)
+    elif op == "instance_norm":
+        got = tb.instance_norm(torch.from_numpy(x))
+        m, var = x.mean((2, 3), keepdims=True), x.var((2, 3), keepdims=True)
+        ref = (x - m) / np.sqrt(var + 1e-5)
+    elif op == "pixel_norm":
+        got = teq.pixel_norm(torch.from_numpy(x), dim=1)
+        ref = x / np.sqrt((x * x).mean(1, keepdims=True) + 1e-8)
+    else:
+        w, s = rng.standard_normal((5, 3, 3, 3)) * 1e-2, x[:, :, 0, 0]
+        got = tmc._demod_coeff(torch.from_numpy(w), torch.from_numpy(s), 0.3)
+        ref = 1.0 / np.sqrt(np.einsum("bi,oi->bo", s * s, (w * w).sum((2, 3))) * 0.09 + 1e-8)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9, atol=1e-9)
+
+
 # --- modulated conv ----------------------------------------------------------
 
 @pytest.mark.parametrize("form", ["plain", "up", "to_rgb"])

@@ -157,7 +157,11 @@ sys.meta_path.insert(0, Blocked())
 import numpy as np, torch
 import hairfastgan_torch.api, hairfastgan_torch.convert_checkpoints
 import hairfastgan_torch.main, hairfastgan_torch.serve
-from hairfastgan_torch.zoo import init_micro_zoo
+import hairfastgan_torch.scripts.gen_blending_data, hairfastgan_torch.scripts.gen_rotate_data
+import hairfastgan_torch.scripts.train_blending, hairfastgan_torch.scripts.train_rotate
+import hairfastgan_torch.train.datagen, hairfastgan_torch.losses
+from hairfastgan_torch.train.blending import make_blending_train_step
+from hairfastgan_torch.zoo import blending_train_tiny, init_micro_zoo
 
 torch.set_num_threads(2)
 zoo, cfg = init_micro_zoo(0)
@@ -166,16 +170,31 @@ rng = np.random.default_rng(0)
 out = hf.swap(*(rng.integers(0, 256, (128, 128, 3), dtype=np.uint8) for _ in range(3)),
               output="uint8")
 assert out.shape == (128, 128, 3) and out.dtype == np.uint8
+frozen, params, tcfg = blending_train_tiny(0)
+step, tx = make_blending_train_step(frozen, tcfg)
+n = tcfg.stylegan.n_latent
+batch = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.1) for s in (
+    (1, n, 512), (1, n, 512), (1, 32, 32, 512), (1, 256, 256, 3), (1, 256, 256, 3))]
+batch += [torch.ones(1, 256, 256, 1)] * 3
+_, _, aux = step(params, tx.init(params), *batch)
+assert np.isfinite(float(aux["loss"]))
 left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
 assert not left, left
-print("SWAPPED", out.shape)
+print("SWAPPED", out.shape, "STEPPED")
 """
 
 
 def test_port_runs_with_jax_blocked():
     """With jax and the JAX package unimportable, the port's entry points
-    import and a micro swap runs on the CPU, in a fresh interpreter."""
+    (the training scripts included) import, and a micro swap and a --tiny
+    blending train step run on the CPU, in a fresh interpreter."""
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
                          timeout=300, cwd=PORT.parent)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "SWAPPED (128, 128, 3)" in res.stdout
+    assert "SWAPPED (128, 128, 3) STEPPED" in res.stdout
+
+
+def test_import_walk_covers_training():
+    """The import check above walks the training modules and CLIs too."""
+    walked = {str(p.relative_to(PORT)).split("/")[0] for p in PORT.rglob("*.py")}
+    assert {"train", "losses", "scripts"} <= walked
