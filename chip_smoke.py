@@ -34,12 +34,20 @@ Phases (any failure exits nonzero and prints no result line):
      pose / 1 + 3 hair rotate steps (step p50, peak memory, finite losses,
      trainable weights moved, frozen ones untouched), the train state's
      round trip, and micro steps on the card against the CPU (TF32 off)
- 11. full-width STAR: landmarks on the card against the CPU, the
+ 11. train_pp: the PostProcess training path at full width, B=2, on the
+     same zoo: generate_pp_sample (ms, launches, the JAX row ABI), 1 + 3
+     fused encoder steps with the discriminator, 1 + 3 discriminator steps
+     and one R1 (p50, peak memory, finite terms, frozen nets untouched),
+     1 + 3 steps each in bf16, split and remat, one step under
+     torch.profiler, the train state with the discriminator, and micro
+     fused and split steps on the card against the CPU (TF32 off)
+ 12. full-width STAR: landmarks on the card against the CPU, the
      confidence gate raising, an aligned 1500x1200 photo through swap
- 12. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
-     subprocess on the card, then the four training scripts (--tiny,
+ 13. the CLI (python -m hairfastgan_torch.main --micro --poisson) in a
+     subprocess on the card, then the six training scripts (--tiny,
      --device cuda: gen_blending_data -> train_blending, gen_rotate_data ->
-     train_rotate) in another
+     train_rotate, gen_pp_data -> train_pp --use_adv --fid_real_dir) in
+     another
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -900,6 +908,54 @@ def row_abi(cfg, b: int):
     return blend, {"W_from": (b, n, 512), "W_to": (b, n, 512), "I_from": img, "I_to": img}
 
 
+def _timed_steps(label, steps, device):
+    """Run (name, fn) steps; p50 ms per name by CUDA events (the first call
+    of each name is a warm-up), peak memory, memory resident before, auxs."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device) / 2 ** 30
+    ms, auxs = collections.defaultdict(list), []
+    for name, fn in steps:
+        aux, t = _event_ms(fn)
+        ms[name].append(t)
+        auxs.append(aux)
+        if not all(torch.isfinite(v).all() for v in aux.values()):
+            raise AssertionError(f"{label} {name}: non-finite {aux}")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    p50 = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    return p50, peak, resident, auxs
+
+
+def _profiled_step(fn):
+    """(device events, device busy ms) of one call of fn (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev), sum(e.device_time for e in ev) / 1e3
+
+
+def _check_frozen(label, frozen, snapshot, params, before):
+    """Every trainable leaf moved; every frozen leaf equal to its snapshot,
+    requires_grad False and without .grad."""
+    import torch
+
+    from hairfastgan_torch.train.common import tensor_leaves
+
+    moved = [not torch.equal(a, b) for a, b in zip(tensor_leaves(params), before)]
+    untouched = all(t.grad is None and not t.requires_grad and torch.equal(t, s)
+                    for t, s in zip(tensor_leaves(frozen), snapshot))
+    if not all(moved) or not untouched:
+        raise AssertionError(f"{label}: {sum(moved)}/{len(moved)} trainable leaves moved; "
+                             f"frozen leaves untouched: {untouched}")
+
+
 def phase_train(zoo32, device, card: str, cfg=None) -> dict:
     """The training path at full width in f32 on phase 4's f32 zoo:
     datagen (blending, seg16 blending, rotate pair, mask16) at B=2, 5
@@ -968,41 +1024,6 @@ def phase_train(zoo32, device, card: str, cfg=None) -> dict:
         raise AssertionError(f"generate_mask16 gave {hm}")
     log(f"[train] rows of the JAX row ABI, finite f32: blending {blend_row}; rotate {rotate_row}")
 
-    def timed_steps(label, steps):
-        """Run (name, fn) steps; p50 ms per name by CUDA events, peak memory."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        resident = torch.cuda.memory_allocated(device) / 2 ** 30
-        ms, auxs = collections.defaultdict(list), []
-        for name, fn in steps:
-            aux, t = _event_ms(fn)
-            ms[name].append(t)
-            auxs.append(aux)
-            if not all(torch.isfinite(v).all() for v in aux.values()):
-                raise AssertionError(f"{label} {name}: non-finite {aux}")
-        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        p50 = {k: statistics.median(v[1:]) for k, v in ms.items()}  # the first is a warm-up
-        return p50, peak, resident, auxs
-
-    def profiled_step(fn):
-        """(device events, device busy ms) of one call of fn (torch.profiler)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        return len(ev), sum(e.device_time for e in ev) / 1e3
-
-    def check_frozen(label, frozen, snapshot, params, before):
-        moved = [not torch.equal(a, b) for a, b in zip(tensor_leaves(params), before)]
-        untouched = all(t.grad is None and not t.requires_grad and torch.equal(t, s)
-                        for t, s in zip(tensor_leaves(frozen), snapshot))
-        if not all(moved) or not untouched:
-            raise AssertionError(f"{label}: {sum(moved)}/{len(moved)} trainable leaves moved; "
-                                 f"frozen leaves untouched: {untouched}")
-
     # 5 blending steps at B=2 on the generator's rows
     frozen = {"generator": zoo32["generator"], "clip": zoo32["blending"]["clip"]}
     params = {"mods": map_tree(zoo32["blending"]["mods"], lambda _, t: t.clone())}
@@ -1012,9 +1033,9 @@ def phase_train(zoo32, device, card: str, cfg=None) -> dict:
     opt = tx.init(params)
     row = rows["generate_blending_sample"]
     batch = tuple(row[k] for k in blend_row)
-    p50, peak, resident, auxs = timed_steps("blending", [
-        ("step", lambda: step(params, opt, *batch)[2]) for _ in range(6)])
-    check_frozen("blending", frozen, snapshot, params, before)
+    p50, peak, resident, auxs = _timed_steps("blending", [
+        ("step", lambda: step(params, opt, *batch)[2]) for _ in range(6)], device)
+    _check_frozen("blending", frozen, snapshot, params, before)
     out["blend"] = (p50["step"], peak, resident)
     log(f"[train] blending: 1 + 5 steps B=2 f32 at 1024^2: step p50 {p50['step']:.2f} ms (CUDA "
         f"events, the 5 after the first); losses {[round(float(a['loss']), 5) for a in auxs]}, "
@@ -1050,9 +1071,9 @@ def phase_train(zoo32, device, card: str, cfg=None) -> dict:
         mal.update({"mse_latents": float(aux["mse_latents"])})
         return aux
 
-    p50, peak, resident, auxs = timed_steps("rotate", [
-        s for _ in range(4) for s in (("pose", pose_step), ("hair", hair_step))])
-    check_frozen("rotate", frozen, snapshot, params, before)
+    p50, peak, resident, auxs = _timed_steps("rotate", [
+        s for _ in range(4) for s in (("pose", pose_step), ("hair", hair_step))], device)
+    _check_frozen("rotate", frozen, snapshot, params, before)
     out["rotate"] = (p50["pose"], p50["hair"], peak, resident)
     log(f"[train] rotate: 1 + 3 pose and 1 + 3 hair steps alternating, B=2 f32, full G[0..8] "
         f"at 1024^2 + STAR + IR-SE-50: pose step p50 {p50['pose']:.2f} ms, hair step p50 "
@@ -1064,7 +1085,7 @@ def phase_train(zoo32, device, card: str, cfg=None) -> dict:
     # one more pose and hair step under torch.profiler: device events and
     # busy time per step, beside the step's p50
     for name, fn in (("pose", pose_step), ("hair", hair_step)):
-        n, busy = profiled_step(fn)
+        n, busy = _profiled_step(fn)
         out[f"profile_{name}"] = (n, busy, p50[name])
         log(f"[train] rotate {name} step under torch.profiler: {n} device events, "
             f"{busy:.2f} ms device busy of the {p50[name]:.2f} ms step p50 (busy share "
@@ -1267,6 +1288,238 @@ def _train_card_vs_cpu(device) -> dict:
     return out
 
 
+def phase_train_pp(zoo32, device, card: str, cfg=None) -> dict:
+    """The PostProcess training path at full width, B=2, on phase 4's f32 zoo:
+    generate_pp_sample (ms, launches, the JAX row ABI); 1 + 3 fused encoder
+    steps with the discriminator (three generator renders at 1024^2, random
+    full-width BiSeNet-16 / IR-SE-50 / LPIPS-AlexNet and discriminator),
+    1 + 3 discriminator steps and one R1; 1 + 3 steps each in bf16, split
+    and remat; one fused step under torch.profiler; micro fused and split
+    steps on the card against the CPU; the train state with the
+    discriminator round-tripped onto the card."""
+    import shutil
+
+    import torch
+
+    from hairfastgan_torch.config import HairFastConfig
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.params.checkpoint import restore_train_state, save_train_state
+    from hairfastgan_torch.train import datagen as D
+    from hairfastgan_torch.train import pp as P
+    from hairfastgan_torch.train.common import tensor_leaves
+    from hairfastgan_torch.zoo import cast_zoo, init_discriminator, pp_train_frozen
+
+    out = {}
+    cfg = cfg or HairFastConfig()
+    size = cfg.stylegan.size
+    rng = np.random.default_rng(6)
+    face, shape, color = (torch.from_numpy(rng.random((2, size, size, 3), np.float32)).to(device)
+                          for _ in range(3))
+    gen = lambda: D.generate_pp_sample(zoo32, face, shape, color, cfg)  # noqa: E731
+    row = counted("datagen generate_pp_sample", gen)
+    ms = [counted("datagen generate_pp_sample", lambda: _event_ms(gen))[1] for _ in range(3)]
+    n = LAUNCHES["datagen generate_pp_sample"]
+    if n != 2:  # align_images' soft masks and the blend masks: one [3b] launch each
+        raise AssertionError(f"generate_pp_sample: {n} dilate_erode launches per call")
+    abi = {"source": (2, 256, 256, 3), "target": (2, 256, 256, 3),
+           "target_mask": (2, 256, 256, 1), "HT_E": (2, 256, 256, 1),
+           "source_full": (2, size, size, 3)}
+    got = {k: tuple(v.shape) for k, v in row.items()}
+    bad = [k for k, v in row.items() if v.dtype != torch.float32 or not torch.isfinite(v).all()]
+    if got != abi or bad:
+        raise AssertionError(f"generate_pp_sample rows {got} (non-finite or not f32: {bad})")
+    out["generate_pp_sample"] = (statistics.median(ms), n)
+    log(f"[train_pp] generate_pp_sample B=2 f32: p50 {out['generate_pp_sample'][0]:.2f} ms "
+        f"(CUDA events, 3 calls after one), dilate_erode launches per call {n}; rows of the "
+        f"JAX row ABI, finite f32: {abi}  [{card}]")
+
+    frozen = pp_train_frozen(zoo32["generator"], 1.0, seed=2, device=device)
+    params = map_tree(zoo32["post_process"], lambda _, t: t.clone())
+    disc = init_discriminator(cfg.stylegan, seed=3, device=device)
+    batch = tuple(row[k] for k in ("source", "target", "target_mask", "HT_E"))
+    real = row["source_full"]
+    snapshot = [t.clone() for t in tensor_leaves(frozen)]
+    before = [t.clone() for t in tensor_leaves(params)]
+    d_before = [t.clone() for t in tensor_leaves(disc)]
+    enc, dstep, r1_step, tx, d_tx = P.make_pp_train_steps(frozen, cfg=cfg, use_adv=True)
+    opt, d_opt = tx.init(params), d_tx.init(disc)
+    last = {}
+
+    def enc_step(step, o, *extra):
+        aux = step(params, o, *batch, *extra, 0.5)[2]
+        last["gen_f"] = aux["gen_f"]
+        return aux
+
+    def disc_step():
+        return dstep(disc, d_opt, real, last["gen_f"])[2]
+
+    p50, peak, resident, auxs = _timed_steps("train_pp fused", [
+        ("enc", lambda: enc_step(enc, opt, disc)) for _ in range(4)], device)
+    dp50, dpeak, _, dauxs = _timed_steps("train_pp disc", [
+        ("disc", disc_step) for _ in range(4)], device)
+    r1, r1_ms = _event_ms(lambda: r1_step(disc, real))
+    if not (torch.isfinite(r1) and r1 > 0):
+        raise AssertionError(f"R1 {r1}")
+    _check_frozen("train_pp", frozen, snapshot, params, before)
+    d_moved = sum(not torch.equal(a, b) for a, b in zip(tensor_leaves(disc), d_before))
+    if d_moved != len(d_before):
+        raise AssertionError(f"disc steps moved {d_moved}/{len(d_before)} leaves")
+    terms = {k: round(float(v), 5) for k, v in auxs[-1].items() if v.ndim == 0}
+    out["fused"] = (p50["enc"], peak, resident)
+    out["disc"] = (dp50["disc"], dpeak)
+    out["r1_ms"] = r1_ms
+    log(f"[train_pp] fused encoder step with the discriminator, B=2 f32 at {size}^2: p50 "
+        f"{p50['enc']:.2f} ms (CUDA events, the 3 after the first); peak memory {peak:.2f} GiB, "
+        f"of which {resident:.2f} GiB resident before; last step's terms {terms}; the post-"
+        f"process encoder moved, generator, BiSeNet-16, IR-SE-50 and LPIPS untouched with no "
+        f".grad  [{card}]")
+    log(f"[train_pp] discriminator step B=2 at {size}^2: p50 {dp50['disc']:.2f} ms, peak "
+        f"{dpeak:.2f} GiB, losses {[round(float(a['disc_adv']), 5) for a in dauxs]}; all "
+        f"{d_moved} leaves moved; R1 {float(r1):.4e} in {r1_ms:.2f} ms  [{card}]")
+
+    frozen16 = cast_zoo(frozen, torch.bfloat16)  # resident in bf16, as train_pp --bf16
+    variants = {
+        "bf16": P.make_pp_train_steps(frozen16, cfg=cfg, use_adv=True,
+                                      compute_dtype=torch.bfloat16)[::3],
+        "split": P.make_pp_split_train_step(frozen, cfg=cfg, use_adv=True),
+        "remat": P.make_pp_train_steps(frozen, cfg=cfg, use_adv=True, remat=True)[::3]}
+    for name, (step, vtx) in variants.items():
+        vopt = vtx.init(params)
+        vp50, vpeak, vres, vauxs = _timed_steps(f"train_pp {name}", [
+            (name, lambda: enc_step(step, vopt, disc)) for _ in range(4)], device)
+        out[name] = (vp50[name], vpeak, vres)
+        log(f"[train_pp] {name} encoder step with the discriminator, B=2 at {size}^2: p50 "
+            f"{vp50[name]:.2f} ms, peak {vpeak:.2f} GiB over {vres:.2f} GiB resident; losses "
+            f"{[round(float(a['loss']), 5) for a in vauxs]}  [{card}]")
+        del vopt
+    del frozen16
+
+    n_ev, busy = _profiled_step(lambda: enc_step(enc, opt, disc))
+    out["profile"] = (n_ev, busy, p50["enc"])
+    log(f"[train_pp] fused step under torch.profiler: {n_ev} device events, {busy:.2f} ms "
+        f"device busy of the {p50['enc']:.2f} ms step p50 (busy share {busy / p50['enc']:.3f})"
+        f"  [{card}]")
+
+    tmp = tempfile.mkdtemp(prefix="train_state_pp_")
+    try:
+        sd = opt.state_dict()
+        save_train_state(Path(tmp) / "last", params, sd, 4, disc_params=disc)
+        state = restore_train_state(Path(tmp) / "last", device=device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(a, b) and a.device == b.device for name, tree in
+               (("params", params), ("disc", disc))
+               for a, b in zip(tensor_leaves(state[name]), tensor_leaves(tree)))
+    if not (same and state["step"] == 4):
+        raise AssertionError("the restored PP train state differs from the saved one")
+    log(f"[train_pp] train state with the discriminator: saved and restored onto {device}, "
+        f"{len(tensor_leaves(params))} params and {len(tensor_leaves(disc))} disc leaves equal")
+    del opt, d_opt, params, disc, snapshot, before, d_before, last, state
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"] = _pp_card_vs_cpu(device)
+    return out
+
+
+def _pp_card_vs_cpu(device) -> dict:
+    """A fused and a split PostProcess step with the discriminator at a micro
+    config (128^2 generator at 32 channels, BiSeNet-16 and IR-SE-50 at width
+    0.25, LPIPS-AlexNet), the same weights and inputs on the card and the
+    CPU, TF32 off, in f32 and in float64: max |d loss| / |loss|, max |d grad|
+    / max |grad| (limit 1e-4 each), max |d param| after the Adam step (limit
+    lr/5). As in tests/test_torch_port_pp_train.py, IR-SE's embeddings are
+    centred and scaled to norm ~1, LPIPS' linear weights are non-negative,
+    and the steps run at 1e-3 of the loss weights (Adam's first step stays
+    linear in g).
+
+    The images carry per-pixel noise and the masks are soft (no two pixels
+    equal): on flat regions (blocky images, binary masks) the max-pools of
+    LPIPS and BiSeNet see tied windows, which the card and the CPU may break
+    at different positions (with such inputs the card's f32 gradient was
+    5.78e-4 of max|grad| off the CPU's, against 1.09e-5 between f32 and
+    float64 on the CPU)."""
+    import torch
+
+    from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+    from hairfastgan_torch.losses.identity import extract_id_feats
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.train import pp as P
+    from hairfastgan_torch.train.common import tensor_leaves
+    from hairfastgan_torch.zoo import (fill_random, init_discriminator, micro_zoo_shapes,
+                                       pp_train_frozen)
+
+    lr = 1e-3
+    cfg = HairFastConfig(stylegan=StyleGANConfig(size=128, max_channels=32))
+    shapes, _ = micro_zoo_shapes(max_channels=32)
+    w = _lively(fill_random({"generator": shapes["generator"],
+                             "post_process": shapes["post_process"]}, 4))
+    frozen = pp_train_frozen(w["generator"], 0.25, seed=5)
+    for k in ("bisenet16", "id_backbone"):
+        _lively(frozen[k])
+    disc = init_discriminator(cfg.stylegan, seed=6)
+    for lin in frozen["lpips"]["lins"]:
+        lin["w"].abs_()
+    rng = np.random.default_rng(14)
+
+    def noisy(x, lo, hi):
+        return np.clip(x + rng.normal(0, 0.05, x.shape), lo, hi).astype(np.float32)
+
+    batch_np = (noisy(_blocky(rng, 2, 8), -1, 1), noisy(_blocky(rng, 2, 8), -1, 1),
+                noisy(_blocky(rng, 2, 8, 1, 0.1, 0.9), 0, 1),
+                noisy(_blocky(rng, 2, 16, 1, 0.1, 0.9), 0, 1))
+    bn = frozen["id_backbone"]["bn_feat"]
+    with torch.no_grad():
+        e = extract_id_feats(frozen["id_backbone"], torch.from_numpy(
+            np.concatenate([batch_np[0] * batch_np[2], batch_np[1]])))
+        m = e.mean(0)
+        s = (e - m).norm(dim=1).mean()
+        bn["gamma"].div_(s)
+        bn["beta"].sub_(m).div_(s)
+    weights = {k: v * 1e-3 for k, v in P.DEFAULT_WEIGHTS.items()}
+
+    def run(dev, dt, split):
+        fr, p, d = (map_tree(t, lambda _, v: v.to(dev, dt).clone())
+                    for t in (frozen, w["post_process"], disc))
+        batch = tuple(torch.from_numpy(x).to(dev, dt) for x in batch_np)
+        leaves = tensor_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = P.pp_loss(p, fr, batch, weights, 0.7, d, cfg)
+        grads = [g.cpu().double() for g in torch.autograd.grad(loss, leaves)]
+        for t in leaves:
+            t.requires_grad_(False)
+        if split:
+            step, tx = P.make_pp_split_train_step(fr, weights, cfg, lr=lr, use_adv=True)
+        else:
+            step, _, _, tx, _ = P.make_pp_train_steps(fr, weights, cfg, lr=lr, use_adv=True)
+        p, _, aux = step(p, tx.init(p), *batch, d, 0.7)
+        return (float(aux["loss"]), grads, [t.detach().cpu().double() for t in tensor_leaves(p)])
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    held = (1e-4, 1e-4, lr / 5)
+    try:
+        for split in (False, True):
+            for dt in (torch.float64, torch.float32):
+                (la, ga, pa), (lb, gb, pb) = run(device, dt, split), run("cpu", dt, split)
+                d = (abs(la - lb) / abs(lb),
+                     max(float((x - y).abs().max()) for x, y in zip(ga, gb))
+                     / max(float(y.abs().max()) for y in gb),
+                     max(float((x - y).abs().max()) for x, y in zip(pa, pb)))
+                name = f"{'split' if split else 'fused'} step, {str(dt).split('.')[-1]}"
+                out[name] = d
+                log(f"[train_pp] {name} (micro, with the discriminator, TF32 off), card vs "
+                    f"CPU: loss {lb:.6f}, max |d loss| {d[0]:.2e} of it; max |d grad| "
+                    f"{d[1]:.2e} of max |grad|; max |d param| after the Adam step {d[2]:.2e} "
+                    f"(lr {lr}); limits {held}")
+                if any(x > lim for x, lim in zip(d, held)):
+                    raise AssertionError(f"PP {name}, card vs CPU: {d} over {held}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return out
+
+
 def phase_cli(card: str) -> None:
     """python -m hairfastgan_torch.main --micro --poisson on the card, in a
     subprocess that reports the kernel's launches."""
@@ -1302,11 +1555,14 @@ def phase_cli(card: str) -> None:
 
 
 def phase_train_cli(card: str) -> None:
-    """The four training scripts with --device cuda in one subprocess:
-    gen_blending_data --tiny (4 triples) -> train_blending --tiny, and
+    """The six training scripts with --device cuda in one subprocess:
+    gen_blending_data --tiny (4 triples) -> train_blending --tiny,
     gen_rotate_data --tiny --no_keypoints (4 pairs) -> train_rotate --tiny
-    --no_keypoints, 1 epoch each at batch 2; best/last train states must
-    exist. Reports the kernel's launches and shapes."""
+    --no_keypoints, 1 epoch each at batch 2, and gen_pp_data --tiny (4
+    triples) -> train_pp --tiny --use_adv (1 epoch at batch 1, FID-CLIP
+    against the images, a grid); best/last train states must exist and
+    train_pp's log hold disc_adv, r1 and fid_clip. Reports the kernel's
+    launches and shapes."""
     from PIL import Image
 
     with tempfile.TemporaryDirectory() as d:
@@ -1328,7 +1584,15 @@ def phase_train_cli(card: str) -> None:
                                  "--hair_dir", str(d / "hair")]),
             ("train_rotate", train + ["--no_keypoints", "--pose_dir", str(d / "pose"),
                                       "--hair_dir", str(d / "hair"), "--ckpt_dir",
-                                      str(d / "ckpt_r"), "--log", str(d / "r.jsonl")])]
+                                      str(d / "ckpt_r"), "--log", str(d / "r.jsonl")]),
+            ("gen_pp_data", ["--tiny", "--input_dir", str(d / "imgs"), "--n_random", "4",
+                             "--out_dir", str(d / "pp")]),
+            # batch 1: two train rows, so the second step is past --iter_before
+            ("train_pp", ["--tiny", "--epochs", "1", "--batch_size", "1", "--test_frac", "0.5",
+                          "--use_adv", "--iter_before", "1", "--d_reg_every", "1",
+                          "--torch_dir", str(d / "no_torch"), "--fid_real_dir", str(d / "imgs"),
+                          "--grid_dir", str(d / "grids"), "--data_dir", str(d / "pp"),
+                          "--ckpt_dir", str(d / "ckpt_p"), "--log", str(d / "p.jsonl")])]
         code = ["import json, runpy, sys, time; import chip_smoke as C",
                 "from hairfastgan_torch.ops import morphology as M; C.record_shapes()"]
         for mod, argv in runs:
@@ -1346,14 +1610,23 @@ def phase_train_cli(card: str) -> None:
         SEEN.update((tuple(s), t, i) for s, t, i in json.loads(
             res.stdout.split("SHAPES")[-1]))
         states = sorted(str(p.relative_to(d)) for p in d.glob("ckpt_*/*/train_state.pt"))
-        n_rows = (len(list((d / "blend").glob("*.npz"))), len(list((d / "pose").glob("*.npz"))))
+        n_rows = tuple(len(list((d / k).glob("*.npz"))) for k in ("blend", "pose", "pp"))
+        pp_log = [json.loads(line) for line in (d / "p.jsonl").read_text().splitlines()]
+        pp_keys = sorted({k for rec in pp_log for k in rec} & {"disc_adv", "r1", "fid_clip",
+                                                                "val_loss"})
+        grids = len(list((d / "grids").glob("epoch_*.png")))
     for mod, n, s in ran:
         LAUNCHES[f"CLI {mod} --tiny"] = int(n)
+    random_d = "RANDOM discriminator" in res.stdout
     log(f"[cli] training scripts --tiny --device cuda (module, dilate_erode launches, seconds): "
-        f"{ran}; rows {n_rows}; train states {states}  [{card}]")
-    # gen_blending_data: align_images' and the blend masks' launch per row
-    if len(ran) != 4 or n_rows != (4, 4) or len(states) != 4 or int(ran[0][1]) != 8:
-        raise AssertionError(f"training CLIs: ran {ran}, rows {n_rows}, states {states}")
+        f"{ran}; rows {n_rows}; train states {states}; train_pp logged {pp_keys}, {grids} "
+        f"grid, random-discriminator warning printed: {random_d}  [{card}]")
+    # gen_blending_data / gen_pp_data: align_images' and the blend masks' launch per row
+    if (len(ran) != 6 or n_rows != (4, 4, 4) or len(states) != 6 or int(ran[0][1]) != 8
+            or int(ran[4][1]) != 8 or pp_keys != ["disc_adv", "fid_clip", "r1", "val_loss"]
+            or grids != 1 or not random_d):
+        raise AssertionError(f"training CLIs: ran {ran}, rows {n_rows}, states {states}, "
+                             f"train_pp logged {pp_keys}, grids {grids}")
 
 
 def main() -> int:
@@ -1397,6 +1670,7 @@ def main() -> int:
     serving = phase("serving", phase_serving, hf, hf32, imgs, device, card)
     ckpt = phase("checkpoint_serve", phase_checkpoint_serve, hf32.zoo, imgs, device, card, p50)
     train = phase("train", phase_train, hf32.zoo, device, card)
+    pp = phase("train_pp", phase_train_pp, hf32.zoo, device, card)
     del hf32
     star_ms = phase("star", phase_star, hf, device, card)
     phase("cli", phase_cli, card)
@@ -1429,6 +1703,13 @@ def main() -> int:
         f"hair step {train['rotate'][1]:.2f} ms (peak {train['rotate'][2]:.2f} GiB); datagen "
         f"p50 ms, launches: " + ", ".join(f"{k} {v[0]:.2f}, {v[1]}" for k, v in train.items()
                                           if k.startswith("generate")))
+    log(f"[summary] PostProcess training, B=2 at 1024^2 with the discriminator: fused step "
+        f"f32 p50 {pp['fused'][0]:.2f} ms (peak {pp['fused'][1]:.2f} GiB over "
+        f"{pp['fused'][2]:.2f} resident), bf16 {pp['bf16'][0]:.2f} ms ({pp['bf16'][1]:.2f} GiB), "
+        f"split {pp['split'][0]:.2f} ms ({pp['split'][1]:.2f} GiB), remat {pp['remat'][0]:.2f} "
+        f"ms ({pp['remat'][1]:.2f} GiB); disc step {pp['disc'][0]:.2f} ms, R1 {pp['r1_ms']:.2f} "
+        f"ms; busy share {pp['profile'][1] / pp['profile'][2]:.3f}; generate_pp_sample "
+        f"{pp['generate_pp_sample'][0]:.2f} ms, {pp['generate_pp_sample'][1]} launches")
     log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
         f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
         f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")

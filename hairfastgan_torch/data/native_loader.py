@@ -99,21 +99,28 @@ def resize_u8_native(img: np.ndarray, out_size: int) -> np.ndarray:
 
 class NativeImageLoader:
     """Threaded prefetching decoder over a list of paths: iterates (index,
-    [out_size, out_size, 3] uint8) in completion order; a file that fails to
-    decode is skipped with a warning."""
+    [out_size, out_size, 3] image) in completion order; a file that fails to
+    decode is skipped with a warning. dtype np.uint8 (the default) gives the
+    rounded bytes, np.float32 the library's [0,1] floats, resized before any
+    rounding (the JAX package's loader's default)."""
 
-    def __init__(self, paths: Sequence, out_size: int = 1024, threads: int = 4):
+    def __init__(self, paths: Sequence, out_size: int = 1024, threads: int = 4,
+                 dtype=np.uint8):
         self._lib = _lib()
         self.paths = [str(p) for p in paths]
         self.out_size = out_size
+        self.dtype = np.dtype(dtype)
+        if self.dtype not in (np.dtype(np.float32), np.dtype(np.uint8)):
+            raise ValueError(f"dtype must be float32 or uint8, got {dtype}")
         names = (ctypes.c_char_p * len(self.paths))(*[p.encode() for p in self.paths])
-        # the library copies the paths; format 1 is uint8 output
-        self._handle = self._lib.hfl_create2(names, len(self.paths), out_size, threads, 1)
+        # the library copies the paths; format 0 is float32 output, 1 uint8
+        self._handle = self._lib.hfl_create2(names, len(self.paths), out_size, threads,
+                                             int(self.dtype == np.uint8))
 
     def __iter__(self) -> Iterator[Tuple[int, np.ndarray]]:
         idx = ctypes.c_int(0)
         while self._handle:
-            out = np.empty((self.out_size, self.out_size, 3), np.uint8)
+            out = np.empty((self.out_size, self.out_size, 3), self.dtype)
             if not self._lib.hfl_next_bytes(self._handle, out.ctypes.data_as(ctypes.c_void_p),
                                             ctypes.byref(idx)):
                 return

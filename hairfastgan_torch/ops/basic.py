@@ -135,3 +135,12 @@ def prelu(p, x: Tensor) -> Tensor:
 def avg_pool_global(x: Tensor) -> Tensor:
     """Global average pool NCHW -> [N,C,1,1]."""
     return x.mean(dim=(2, 3), keepdim=True)
+
+
+def relu(x: Tensor) -> Tensor:
+    return torch.relu(x)
+
+
+def max_pool(x: Tensor, window: int, stride: int, padding: int = 0) -> Tensor:
+    """NCHW max pool, torch MaxPool2d semantics (pad with -inf, floor mode)."""
+    return F.max_pool2d(x, window, stride, padding)

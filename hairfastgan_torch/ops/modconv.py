@@ -8,7 +8,8 @@ package's activation-scaling form is kept:
 
 so the conv runs with ONE shared weight (cuDNN) and the per-sample style
 becomes two channel scalings. `up=True` is the reference's stride-2
-transposed conv followed by a [1,3,3,1] blur with gain 4. The zoo stores
+transposed conv followed by a [1,3,3,1] blur with gain 4; `down=True` is
+the reference's [1,3,3,1] blur followed by a stride-2 conv. The zoo stores
 the up kernel in forward (lhs-dilated) form, pre-flipped by the JAX
 converter; conv_transpose2d wants the unflipped kernel with I/O swapped, so
 it is flipped back here (once, not twice). Plain PyTorch; the hand kernel
@@ -39,13 +40,13 @@ def _demod_coeff(w: torch.Tensor, s: torch.Tensor, fan_scale: float,
 
 
 def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
-                     demodulate: bool = True, up: bool = False,
+                     demodulate: bool = True, up: bool = False, down: bool = False,
                      blur_kernel: Tuple[int, ...] = (1, 3, 3, 1)) -> torch.Tensor:
     """x [B,I,H,W], style [B,style_dim] -> [B,O,H',W'].
 
     p['w']: OIHW kernel (forward form; for up=True the flipped transposed-conv
     kernel); p['modulation']: EqualLinear(style_dim -> I, bias init 1).
-    Forms: plain and up (demodulated StyledConv) and ToRGB (1x1,
+    Forms: plain, up and down (demodulated StyledConv) and ToRGB (1x1,
     demodulate=False).
     """
     cout, cin, kh, kw = p["w"].shape
@@ -55,6 +56,10 @@ def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
     w = p["w"].to(x.dtype) * fan_scale
     if up:
         y = F.conv_transpose2d(xm, torch.flip(w, (2, 3)).transpose(0, 1), stride=2)
+    elif down:
+        # the reference ModulatedConv2d(downsample=True): Blur, then a stride-2 conv
+        pp = (len(blur_kernel) - 2) + (kh - 1)
+        y = F.conv2d(blur2d(xm, blur_kernel, pad=((pp + 1) // 2, pp // 2)), w, stride=2)
     else:
         y = F.conv2d(xm, w, padding=kh // 2)
     if demodulate:

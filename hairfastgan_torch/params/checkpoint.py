@@ -44,16 +44,20 @@ def load_zoo_file(path, device="cpu") -> Dict:
 TRAIN_STATE_FILE = "train_state.pt"
 
 
-def save_train_state(path, params: Any, opt_state: Dict, step: int,
+def save_train_state(path, params: Any, opt_state: Dict, step: int, disc_params: Any = None,
                      strip: Sequence[str] = ("clip",)) -> Path:
     """Training checkpoint incl. optimizer + step (counterpart of the JAX
     package's save_train_state): `params` without the frozen subtrees named
     in `strip` (the CLIP tower rides in the blending tree), the optimizer's
-    `state_dict()` and `step`, detached on the CPU, in one `torch.save`
+    `state_dict()`, `step` and, when given, the PostProcess trainer's
+    discriminator under "disc" (pp_train.py:100-112; its Adam state is not
+    kept, as in the JAX package), detached on the CPU, in one `torch.save`
     file `<path>/train_state.pt`. Returns the file's path."""
     tree = {"params": ({k: v for k, v in params.items() if k not in strip}
                        if isinstance(params, dict) else params),
             "opt_state": opt_state, "step": step}
+    if disc_params is not None:
+        tree["disc"] = disc_params
     d = Path(path)
     d.mkdir(parents=True, exist_ok=True)
     out = d / TRAIN_STATE_FILE
@@ -64,7 +68,7 @@ def save_train_state(path, params: Any, opt_state: Dict, step: int,
 
 
 def restore_train_state(path, device="cpu") -> Dict[str, Any]:
-    """`<path>/train_state.pt` -> {"params", "opt_state", "step"}
+    """`<path>/train_state.pt` -> {"params", "opt_state", "step"[, "disc"]}
     with every tensor on `device`; `opt.load_state_dict(state["opt_state"])`
     puts the Adam moments back."""
     return torch.load(str(Path(path) / TRAIN_STATE_FILE), map_location=torch.device(device),

@@ -152,6 +152,32 @@ def convert_stylegan2(sd: SD) -> dict:
     }
 
 
+def convert_discriminator(sd: SD, size: int = 1024) -> dict:
+    """rosinality Discriminator state dict (model.py:667-725) ->
+    models/stylegan2_discriminator.init_discriminator's tree.
+
+    convs.0 = ConvLayer(3, ch, 1) [EqualConv2d, FusedLeakyReLU]; convs.1..N
+    are ResBlocks whose conv2/skip are Sequential(Blur, EqualConv2d,
+    [FusedLeakyReLU]). The Blur 'kernel' buffers are the fixed (1,3,3,1) the
+    model rebuilds, so only weights and biases map."""
+    def conv(name, bias=None):
+        p = {"conv": {"w": _t(sd[f"{name}.weight"])}}
+        if bias is not None:
+            p["bias"] = _t(sd[f"{bias}.bias"])
+        return p
+
+    p = {"conv_in": conv("convs.0.0", "convs.0.1"), "blocks": [],
+         "final_conv": conv("final_conv.0", "final_conv.1"),
+         "final_linear1": t_linear(sd, "final_linear.0"),
+         "final_linear2": t_linear(sd, "final_linear.1")}
+    for j in range(1, int(np.log2(size)) - 1):
+        n = f"convs.{j}"
+        p["blocks"].append({"conv1": conv(f"{n}.conv1.0", f"{n}.conv1.1"),
+                            "conv2": conv(f"{n}.conv2.1", f"{n}.conv2.2"),
+                            "skip": conv(f"{n}.skip.1")})
+    return p
+
+
 # -- insightface IResNet trunk (FSE / PostProcess encoders) ------------------
 
 def _t_ibasic(sd: SD, name: str) -> dict:

@@ -39,7 +39,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=3407)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true",
-                    help="128^2 random tiny zoo: rows that train_blending --tiny reads")
+                    help="128^2 random tiny zoo: rows that the trainer's --tiny reads")
     ap.add_argument("--micro", action="store_true",
                     help="--tiny with 0.25x trunk widths and 128 generator channels "
                          "(cheapest CPU smoke; align_f rows have 128 channels)")
@@ -47,12 +47,18 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    from hairfastgan_torch.train.datagen import generate_blending_sample
+
+    write_rows(parser().parse_args(argv), generate_blending_sample)
+
+
+def write_rows(args, generate) -> None:
+    """One .npz row of generate(zoo, face, shape, color, cfg) per triple of
+    `args` (the parser above), the zoo and device as its flags say."""
     device = device_from_arg(args.device)
 
     from hairfastgan_torch import zoo as Z
     from hairfastgan_torch.config import HairFastConfig
-    from hairfastgan_torch.train.datagen import generate_blending_sample
     from hairfastgan_torch.utils.images import to_image_array
 
     if args.micro or args.tiny:
@@ -77,12 +83,11 @@ def main(argv=None):
     for i, triple in enumerate(triples):
         imgs = [torch.from_numpy(to_image_array(args.input_dir / p, cfg.stylegan.size))[None]
                 .to(device) for p in triple]
-        row = generate_blending_sample(zoo, *imgs, cfg)
+        row = generate(zoo, *imgs, cfg)
         np.savez(args.out_dir / f"row_{i:06d}.npz",
                  **{k: v.float().cpu().numpy() for k, v in row.items()})
         if i % 50 == 0:
             print(f"{i}/{len(triples)}")
-
 
 if __name__ == "__main__":
     main()

@@ -12,8 +12,8 @@ with the held-out loss; keeps best/last train states
         --data_dir blend_rows --epochs 1 --batch_size 2
 
 --device defaults to cuda and raises without a GPU. The JAX CLI's data mesh
-is the one device here. Its FID-CLIP validation flags (--fid_real_dir,
---fid_cache) come with the port of eval/fid and are not in this parser yet.
+is the one device here. --fid_real_dir adds FID-CLIP of the validation
+renders against a real-face directory to each epoch's log (eval/fid.py).
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--test_frac", type=float, default=0.1)
+    ap.add_argument("--fid_cache", type=Path, default=None,
+                    help="npz cache of the real-dir CLIP stats across runs "
+                         "(reference input/fid.pkl, utils/train.py:125-161)")
+    ap.add_argument("--fid_real_dir", type=Path, default=None,
+                    help="real-face dir for per-validation FID-CLIP "
+                         "(blending_train.py:127-167)")
     ap.add_argument("--grid_dir", type=Path, default=None,
                     help="dump validation render grids here")
     ap.add_argument("--log", type=Path, default=Path("blending_train.jsonl"))
@@ -85,6 +91,14 @@ def main(argv=None):
     logger = MetricLogger(str(args.log))
     best = float("inf")
 
+    feat_fn = None
+    if args.fid_real_dir is not None:
+        from hairfastgan_torch.eval.fid import clip_feature_fn
+        from hairfastgan_torch.scripts.fid_metric import real_stats
+
+        feat_fn = clip_feature_fn(frozen["clip"])
+        fid_real = real_stats(args.fid_real_dir, feat_fn, size=256, cache=args.fid_cache)
+
     try:
         for epoch in range(args.epochs):
             for batch in batches(train_rows, BATCH_KEYS, args.batch_size, device, seed=epoch):
@@ -100,19 +114,28 @@ def main(argv=None):
             v = float(np.mean(vls)) if vls else float("nan")
             logger.log(val_loss=v)
 
-            if args.grid_dir is not None:
-                from hairfastgan_torch.utils.images import save_image01
-                from hairfastgan_torch.utils.save_utils import image_grid
-
+            extra = ""
+            if feat_fn is not None or args.grid_dir is not None:
                 with torch.no_grad():
                     renders = [((blend_render(params, frozen, *b[:7], cfg) + 1) / 2)
                                .clamp(0, 1).permute(0, 2, 3, 1).cpu().numpy()
                                for b in batches(test_rows, BATCH_KEYS, args.batch_size, device,
                                                 shuffle=False)]
                 if renders:
-                    save_image01(args.grid_dir / f"epoch_{epoch:04d}.png",
-                                 image_grid(np.concatenate(renders)[:100]))
-            print(f"epoch {epoch}: val {v:.4f}")
+                    renders = np.concatenate(renders)
+                    if feat_fn is not None:
+                        from hairfastgan_torch.eval.fid import fid_to
+
+                        fid = fid_to(fid_real, renders, feat_fn)
+                        logger.log(fid_clip=fid)
+                        extra += f" fid-clip {fid:.3f}"
+                    if args.grid_dir is not None:
+                        from hairfastgan_torch.utils.images import save_image01
+                        from hairfastgan_torch.utils.save_utils import image_grid
+
+                        save_image01(args.grid_dir / f"epoch_{epoch:04d}.png",
+                                     image_grid(renders[:100]))
+            print(f"epoch {epoch}: val {v:.4f}{extra}")
             save_train_state(args.ckpt_dir / "last", params, opt.state_dict(), logger.step)
             if v < best:
                 best = v

@@ -79,6 +79,22 @@ def adam_with_clip(lr: float = 1e-4, clip_norm: float = 5.0) -> AdamWithClip:
     return AdamWithClip(lr=lr, clip_norm=clip_norm)
 
 
+def apply_update(tx: AdamWithClip, opt: torch.optim.Optimizer) -> Tensor:
+    """One update from the gradients in the trainable leaves' `.grad`: a leaf
+    the loss did not reach gets a zero gradient (so that Adam moves its
+    moments as optax does), the gradients are clipped as optax does, Adam
+    steps in place and the gradients are set back to None. Returns the
+    gradients' norm before the clip."""
+    leaves = [p for group in opt.param_groups for p in group["params"]]
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    norm = tx.clip_([p.grad for p in leaves])
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return norm
+
+
 def make_train_step(loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
                     tx: AdamWithClip, remat: bool = False, frozen: Any = None):
     """loss_fn(params, [frozen,] *batch) -> (scalar, aux) => an update step
@@ -86,10 +102,8 @@ def make_train_step(loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
         params, opt, aux = step(params, opt, *batch)
 
     where `opt = tx.init(params)`. The step runs the loss, backpropagates
-    into the trainable leaves (the optimizer's), clips their gradients as
-    optax does, steps Adam in place and sets the gradients back to None.
-    A leaf the loss does not reach gets a zero gradient, so that Adam moves
-    its moments as optax does. `aux` gains `loss` and `grad_norm` (the norm
+    into the trainable leaves (the optimizer's) and applies the update
+    (apply_update). `aux` gains `loss` and `grad_norm` (the norm
     before the clip, optax.global_norm(grads)), detached on the device.
 
     frozen: the non-trained weights, passed to loss_fn as its second
@@ -111,13 +125,7 @@ def make_train_step(loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
         fargs = ((frozen,) if frozen is not None else ()) + batch
         loss, aux = run(params, *fargs)
         loss.backward()
-        leaves = [p for group in opt.param_groups for p in group["params"]]
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        norm = tx.clip_([p.grad for p in leaves])
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        norm = apply_update(tx, opt)
         aux = {k: v.detach() for k, v in aux.items()}
         aux.update(loss=loss.detach(), grad_norm=norm.detach())
         return params, opt, aux

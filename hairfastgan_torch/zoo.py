@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
-from hairfastgan_torch.losses import identity
+from hairfastgan_torch.losses import identity, perceptual
 from hairfastgan_torch.models import bisenet, clip_vit, e4e, encoders, iresnet, sean, star
+from hairfastgan_torch.models import stylegan2_discriminator
 from hairfastgan_torch.models import shape_adaptor as sa
 from hairfastgan_torch.models import stylegan2
 from hairfastgan_torch.models.layers import spec
@@ -179,6 +180,38 @@ def rotate_train_tiny(seed: int = 0, device="cpu"):
                      "arcface": identity.init_irse_backbone(), "rotate": encoders.init_rotate_model()},
                     seed, device)
     return {"generator": t["generator"], "arcface": t["arcface"]}, t["rotate"], cfg
+
+
+def pp_train_frozen(generator: Dict, trunk_width: float = 1.0, seed: int = 0,
+                    device="cpu") -> Dict:
+    """The PostProcess trainer's frozen tree (the JAX CLI's train_pp.py
+    :118-131): `generator` beside a random 16-class BiSeNet (seg.pth's
+    shapes), IR-SE-50 identity backbone and LPIPS-AlexNet. trunk_width 0.25
+    matches the --micro zoo's trunks; LPIPS keeps its widths."""
+    t = fill_random({"bisenet16": bisenet.init_bisenet(n_classes=16, width=trunk_width),
+                     "id_backbone": identity.init_irse_backbone(width=trunk_width),
+                     "lpips": perceptual.init_lpips_alex()}, seed, device)
+    return dict(t, generator=generator)
+
+
+def init_discriminator(cfg: StyleGANConfig, seed: Optional[int] = 0, device="cpu") -> Dict:
+    """Random StyleGAN2 discriminator at the generator's config (the JAX
+    CLI's start without ffhq.pkl), drawn as the JAX init and rosinality's
+    draw it: weights N(0, 1) (equalized learning rate scales them at run
+    time), biases 0; from a numpy seed in JAX layout and leaf order.
+    seed=None keeps meta tensors (shapes only)."""
+    shapes = stylegan2_discriminator.init_discriminator(cfg)
+    if seed is None:
+        return fill_random(shapes, None)
+    rng = np.random.default_rng(seed)
+
+    def leaf(key, t):
+        shape = tuple(t.shape)
+        a = (rng.standard_normal(shape, dtype=np.float32) if key == "w"
+             else np.zeros(shape, np.float32))
+        return to_port(key, torch.from_numpy(a)).to(device).contiguous()
+
+    return map_tree(shapes, leaf)
 
 
 def cast_zoo(zoo: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:

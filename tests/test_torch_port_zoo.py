@@ -159,9 +159,14 @@ import hairfastgan_torch.api, hairfastgan_torch.convert_checkpoints
 import hairfastgan_torch.main, hairfastgan_torch.serve
 import hairfastgan_torch.scripts.gen_blending_data, hairfastgan_torch.scripts.gen_rotate_data
 import hairfastgan_torch.scripts.train_blending, hairfastgan_torch.scripts.train_rotate
+import hairfastgan_torch.scripts.gen_pp_data, hairfastgan_torch.scripts.train_pp
+import hairfastgan_torch.scripts.fid_metric, hairfastgan_torch.eval.fid
+import hairfastgan_torch.params.nvlabs
 import hairfastgan_torch.train.datagen, hairfastgan_torch.losses
 from hairfastgan_torch.train.blending import make_blending_train_step
-from hairfastgan_torch.zoo import blending_train_tiny, init_micro_zoo
+from hairfastgan_torch.train.pp import make_pp_train_steps
+from hairfastgan_torch.zoo import (blending_train_tiny, init_discriminator, init_micro_zoo,
+                                   pp_train_frozen)
 
 torch.set_num_threads(2)
 zoo, cfg = init_micro_zoo(0)
@@ -178,6 +183,12 @@ batch = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.1) for s 
 batch += [torch.ones(1, 256, 256, 1)] * 3
 _, _, aux = step(params, tx.init(params), *batch)
 assert np.isfinite(float(aux["loss"]))
+pp, _, _, ptx, _ = make_pp_train_steps(pp_train_frozen(zoo["generator"], 0.25), cfg=cfg,
+                                        use_adv=True)
+pp_batch = [torch.from_numpy(rng.random((1, 256, 256, c), dtype=np.float32)) for c in (3, 3, 1, 1)]
+_, _, aux = pp(zoo["post_process"], ptx.init(zoo["post_process"]), *pp_batch,
+               init_discriminator(cfg.stylegan), 0.5)
+assert np.isfinite(float(aux["loss"])) and float(aux["adv"]) != 0
 left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
 assert not left, left
 print("SWAPPED", out.shape, "STEPPED")
@@ -186,8 +197,9 @@ print("SWAPPED", out.shape, "STEPPED")
 
 def test_port_runs_with_jax_blocked():
     """With jax and the JAX package unimportable, the port's entry points
-    (the training scripts included) import, and a micro swap and a --tiny
-    blending train step run on the CPU, in a fresh interpreter."""
+    (the training scripts included) import, and a micro swap, a --tiny
+    blending train step and a --micro PostProcess step with the
+    discriminator run on the CPU, in a fresh interpreter."""
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
                          timeout=300, cwd=PORT.parent)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -197,4 +209,4 @@ def test_port_runs_with_jax_blocked():
 def test_import_walk_covers_training():
     """The import check above walks the training modules and CLIs too."""
     walked = {str(p.relative_to(PORT)).split("/")[0] for p in PORT.rglob("*.py")}
-    assert {"train", "losses", "scripts"} <= walked
+    assert {"train", "losses", "scripts", "eval", "params"} <= walked
