@@ -48,6 +48,14 @@ Phases (any failure exits nonzero and prints no result line):
      --device cuda: gen_blending_data -> train_blending, gen_rotate_data ->
      train_rotate, gen_pp_data -> train_pp --use_adv --fid_real_dir) in
      another
+ 14. eval: the codec-free Keys resize (csrc/resize_u8.cpp) within 1 uint8
+     step of the card's bicubic and upload_res_agreement (Keys beside
+     LANCZOS); full-width InceptionV3 card vs CPU and its p50;
+     fid_metric --device cuda in a subprocess against frechet_distance in
+     this process; build_pca_model on the card (orthonormal components,
+     p_norm_loss card vs CPU); align_faces --device cuda in a subprocess;
+     the parity harness at full width passing a golden of the port's own
+     f32 run and failing it once perturbed
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -1520,6 +1528,26 @@ def _pp_card_vs_cpu(device) -> dict:
     return out
 
 
+def run_module(module: str, argv, key: str, prelude: str = "", timeout: int = 600):
+    """`python -m <module> argv` in a subprocess (after the Python lines
+    `prelude`) that records the kernel's launches under LAUNCHES[key] and
+    its shapes in SEEN; returns the subprocess's stdout."""
+    code = "\n".join([
+        "import json, runpy, sys; import chip_smoke as C",
+        "from hairfastgan_torch.ops import morphology as M; C.record_shapes()", prelude,
+        f"sys.argv = {[module] + list(argv)!r}",
+        f"runpy.run_module({module!r}, run_name='__main__')",
+        "print('SHAPES', json.dumps(sorted(C.SEEN))); print('LAUNCHES', M.dilate_erode.launches)"])
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=timeout, cwd=Path(__file__).resolve().parent)
+    if res.returncode != 0:
+        raise AssertionError(f"{module} failed ({res.returncode}): {res.stderr[-3000:]}")
+    shapes, n = res.stdout.split("SHAPES")[-1].split("LAUNCHES")
+    SEEN.update((tuple(s), t, i) for s, t, i in json.loads(shapes))
+    LAUNCHES[key] = int(n)
+    return res.stdout
+
+
 def phase_cli(card: str) -> None:
     """python -m hairfastgan_torch.main --micro --poisson on the card, in a
     subprocess that reports the kernel's launches."""
@@ -1530,22 +1558,11 @@ def phase_cli(card: str) -> None:
         for name in "abc":
             Image.fromarray(rng.integers(0, 256, (200, 160, 3), dtype=np.uint8)).save(
                 Path(d) / f"{name}.png")
-        argv = ["hairfastgan_torch.main", "--micro", "--poisson", "--input_dir", d,
-                "--face_path", "a.png", "--shape_path", "b.png", "--color_path", "c.png",
+        argv = ["--micro", "--poisson", "--input_dir", d, "--face_path", "a.png",
+                "--shape_path", "b.png", "--color_path", "c.png",
                 "--output_dir", str(Path(d) / "out")]
-        code = ("import json, runpy, sys; import chip_smoke as C; "
-                "from hairfastgan_torch.ops import morphology as M; C.record_shapes(); "
-                f"sys.argv = {argv!r}; runpy.run_module('hairfastgan_torch.main', "
-                "run_name='__main__'); print('SHAPES', json.dumps(sorted(C.SEEN))); "
-                "print('LAUNCHES', M.dilate_erode.launches)")
-        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                             timeout=600, cwd=Path(__file__).resolve().parent)
-        if res.returncode != 0:
-            raise AssertionError(f"CLI failed ({res.returncode}): {res.stderr[-2000:]}")
-        shapes_out, n = res.stdout.split("SHAPES")[-1].split("LAUNCHES")
-        SEEN.update((tuple(s), d, i) for s, d, i in json.loads(shapes_out))
-        n = int(n)
-        LAUNCHES["CLI --micro --poisson"] = n
+        run_module("hairfastgan_torch.main", argv, "CLI --micro --poisson")
+        n = LAUNCHES["CLI --micro --poisson"]
         shape = np.asarray(Image.open(Path(d) / "out" / "a_b_c.png")).shape
     log(f"[cli] --micro --poisson on the card: wrote a_b_c.png {shape}; dilate_erode launches "
         f"{n}  [{card}]")
@@ -1629,6 +1646,387 @@ def phase_train_cli(card: str) -> None:
                              f"train_pp logged {pp_keys}, grids {grids}")
 
 
+# -- phase 14: evaluation and offline tools -----------------------------------
+
+def write_golden(d: Path, final, inter) -> None:
+    """One run's numpy intermediates (hair_fast's keys and layouts, F tensors
+    NHWC) and final image, in the reference's save_all layout (torch NCHW
+    latents, vis-mask PNGs, final.png): the golden the parity harness reads."""
+    from PIL import Image
+
+    from hairfastgan_torch.utils.save_utils import save_vis_mask
+
+    def to_torch_f(f):  # NHWC [1,H,W,C] -> [1,C,H,W]
+        return np.transpose(f, (0, 3, 1, 2))
+
+    d = Path(d)
+    for name in ("face", "shape", "color"):
+        (d / "W+").mkdir(parents=True, exist_ok=True)
+        (d / "FS").mkdir(exist_ok=True)
+        np.savez(d / "W+" / f"{name}.npz", latent_W=inter[f"W_{name}"])
+        np.savez(d / "FS" / f"{name}.npz", latent_S=inter[f"S_{name}"],
+                 latent_F=to_torch_f(inter[f"F_{name}"]))
+        save_vis_mask(d, "Shape", f"mask_{name}.png", inter[f"mask_{name}"][0])
+    (d / "Align").mkdir(exist_ok=True)
+    np.savez(d / "Align" / "face_shape_F.npz", latent_F_align=to_torch_f(inter["latent_F_align"]))
+    (d / "Blending").mkdir(exist_ok=True)
+    np.savez(d / "Blending" / "blending.npz", S_blend=inter["S_blend"])
+    (d / "Final").mkdir(exist_ok=True)
+    np.savez(d / "Final" / "final.npz", S_final=inter["S_final"],
+             F_final=to_torch_f(inter["F_final"]))
+    arr = (np.clip(final[0], 0, 1) * 255.0 + 0.5).astype(np.uint8)
+    Image.fromarray(arr).save(d / "Final" / "final.png")
+
+
+def inception_state_dict(params) -> dict:
+    """The port's InceptionV3 params -> a torchvision inception_v3 state dict
+    (CPU tensors): the inverse of models/inception.convert_inception."""
+    from hairfastgan_torch.models.inception import BRANCH_MAP, TV_MAP
+
+    sd = {}
+
+    def emit(tv, cbn):
+        bn = cbn["bn"]
+        sd.update({f"{tv}.conv.weight": cbn["conv"]["w"], f"{tv}.bn.weight": bn["gamma"],
+                   f"{tv}.bn.bias": bn["beta"], f"{tv}.bn.running_mean": bn["mean"],
+                   f"{tv}.bn.running_var": bn["var"]})
+
+    for ours, tv in TV_MAP.items():
+        if ours.startswith("stem."):
+            emit(tv, params["stem"][ours.split(".")[1]])
+        else:
+            for k, v in BRANCH_MAP[ours[0]].items():
+                emit(f"{tv}.{v}", params[ours][k])
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def star_state_dict(p) -> dict:
+    """The port's STAR params -> the reference's star_wflw.pth layout
+    ({"net": state dict}, CPU tensors): the inverse of models/star.convert_star."""
+    sd = {}
+
+    def conv(name, c):
+        sd[f"{name}.weight"] = c["w"]
+        if "b" in c:
+            sd[f"{name}.bias"] = c["b"]
+
+    def bn(name, b):
+        sd.update({f"{name}.weight": b["gamma"], f"{name}.bias": b["beta"],
+                   f"{name}.running_mean": b["mean"], f"{name}.running_var": b["var"]})
+
+    def cb(name, c):
+        conv(f"{name}.conv", c["conv"])
+        if "bn" in c:
+            bn(f"{name}.bn", c["bn"])
+
+    def rb(name, r):
+        for i in (1, 2, 3):
+            bn(f"{name}.bn{i}", r[f"bn{i}"])
+            cb(f"{name}.conv{i}", r[f"conv{i}"])
+        if "skip" in r:
+            cb(f"{name}.skip_layer", r["skip"])
+
+    def hg(name, h):
+        for part in ("up1", "low1", "low3"):
+            rb(f"{name}.{part}", h[part])
+        (hg if "low2" in h["low2"] else rb)(f"{name}.low2", h["low2"])
+        if "coordconv" in h:
+            conv(f"{name}.coordconv.conv", h["coordconv"]["conv"])
+
+    cb("pre.0", p["pre_conv"])
+    for i, key in ((1, "pre_r1"), (3, "pre_r2"), (4, "pre_r3")):
+        rb(f"pre.{i}", p[key])
+    for i, st in enumerate(p["stacks"]):
+        hg(f"hgs.{i}", st["hg"])
+        rb(f"features.{i}.0", st["feat_r"])
+        cb(f"features.{i}.1", st["feat_c"])
+        for ours, ref in (("out_heat", "out_heatmaps"), ("out_point", "out_pointmaps"),
+                          ("out_edge", "out_edgemaps"), ("merge_feat", "merge_features"),
+                          ("merge_heat", "merge_heatmaps"), ("merge_point", "merge_pointmaps"),
+                          ("merge_edge", "merge_edgemaps")):
+            if ours in st:
+                cb(f"{ref}.{i}", st[ours])
+    return {"net": {k: v.detach().cpu().contiguous() for k, v in sd.items()}}
+
+
+def _eval_upload_res(device, card: str) -> dict:
+    """The codec-free resize library loads and its 1024 -> 512 resize is
+    within 1 uint8 step of the device's bicubic; then upload_res_agreement
+    at --n 8 on the card, Keys beside LANCZOS, hair_iou defined for both."""
+    import torch
+
+    from hairfastgan_torch.data import native_loader
+    from hairfastgan_torch.ops.resample import resize
+    from hairfastgan_torch.scripts import upload_res_agreement
+
+    if not native_loader.resize_available():
+        raise AssertionError(f"the resize-only library did not load: "
+                             f"{native_loader.resize_error()}")
+    img = np.random.default_rng(41).integers(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    host = native_loader.resize_u8_native(img, 512)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(img).to(device).permute(2, 0, 1)[None].float() / 255.0
+    dev = (resize(x, (512, 512), "bicubic").clamp(0, 1) * 255.0 + 0.5).floor()
+    dev = dev[0].permute(1, 2, 0).to(torch.uint8).cpu().numpy()
+    step = int(np.abs(host.astype(np.int16) - dev.astype(np.int16)).max())
+    log(f"[eval] resize-only library (csrc/resize_u8.cpp) loaded; the full loader "
+        f"{'built' if native_loader.native_available() else 'did not build'} "
+        f"({native_loader.native_error()}); 1024->512 Keys bicubic on the host vs the card's "
+        f"bicubic: max |diff| {step} uint8 step(s)  [{card}]")
+    if step > 1:
+        raise AssertionError(f"host Keys resize is {step} steps from the device bicubic")
+    agree = counted("upload_res_agreement", lambda: upload_res_agreement.main(
+        ["--n", "8", "--device", "cuda"]), at_least=0)
+    log(f"[eval] upload_res_agreement --n 8 --upload_res 512 on the card: Keys "
+        f"{agree['keys']}; LANCZOS {agree['lanczos']}  [{card}]")
+    log(f"[eval] hair_iou: Keys {agree['keys']['hair_iou']}, LANCZOS "
+        f"{agree['lanczos']['hair_iou']}  [{card}]")
+    if any(agree[r]["hair_iou"] is None for r in ("keys", "lanczos")):
+        raise AssertionError("upload_res_agreement's BiSeNet gave no hair pixel: hair_iou "
+                             "is undefined")
+    return {"resize_step": step, "upload_res": agree}
+
+
+def _eval_inception(device, card: str) -> float:
+    """Full-width InceptionV3 (init_inception, seed 0) on 16 seeded 1024^2
+    images: the card's f32 features against the CPU's, and the p50 ms per
+    batch of 16 by CUDA events."""
+    import torch
+
+    from hairfastgan_torch.models.inception import init_inception, inception_features_nchw
+    from hairfastgan_torch.params.bridge import map_tree
+
+    params = init_inception(0, device)
+    x = torch.from_numpy(np.random.default_rng(42).random((16, 3, 1024, 1024), dtype=np.float32))
+    xd = x.to(device)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        card_f = inception_features_nchw(params, xd).cpu()
+        cpu_f = inception_features_nchw(map_tree(params, lambda _, t: t.cpu()), x)
+    torch.backends.cudnn.allow_tf32 = True
+    err = (card_f - cpu_f).abs().max().item() / cpu_f.abs().max().item()
+    with torch.inference_mode():
+        for _ in range(2):
+            inception_features_nchw(params, xd)
+        times = [_event_ms(lambda: inception_features_nchw(params, xd))[1]
+                 for _ in range(10)]
+    p50 = statistics.median(times)
+    log(f"[eval] InceptionV3 pool3 [16,2048] from 16 x 1024^2: card vs CPU (f32, TF32 off) "
+        f"max |diff| {err:.2e} of max |feature| {cpu_f.abs().max().item():.4f}; p50 "
+        f"{p50:.2f} ms per batch of 16 (CUDA events, 10 runs, TF32 as PyTorch defaults; "
+        f"min {min(times):.2f}, max {max(times):.2f})  [{card}]")
+    if not torch.isfinite(card_f).all() or err > 1e-3:
+        raise AssertionError(f"Inception card vs CPU: {err}")
+    return p50
+
+
+def _eval_fid_metric(device, card: str) -> None:
+    """fid_metric with --device cuda in a subprocess on a real and two method
+    directories of 16 seeded PNGs, with a random torchvision-layout
+    --inception_ckpt: its CSV against frechet_distance in this process."""
+    import torch
+    from PIL import Image
+
+    from hairfastgan_torch.eval.fid import FIDStats, clip_feature_fn, frechet_distance
+    from hairfastgan_torch.models.inception import init_inception
+    from hairfastgan_torch.scripts import fid_metric
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rng = np.random.default_rng(43)
+        for sub in ("real", "m1", "m2"):
+            (d / sub).mkdir()
+            for i in range(16):
+                Image.fromarray(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)).save(
+                    d / sub / f"{i:02d}.png")
+        ckpt = d / "inception_v3.pth"
+        torch.save(inception_state_dict(init_inception(1)), ckpt)
+        argv = ["--real_dir", str(d / "real"), "--method_dirs", str(d / "m1"), str(d / "m2"),
+                "--inception_ckpt", str(ckpt), "--zoo_dir", str(d / "nozoo"), "--batch", "8",
+                "--fid_cache", str(d / "cache" / "real.npz"), "--out_csv", str(d / "fid.csv"),
+                "--device", "cuda"]
+        t0 = time.perf_counter()
+        run_module("hairfastgan_torch.scripts.fid_metric", argv, "fid_metric")
+        run_s = time.perf_counter() - t0
+        lines = (d / "fid.csv").read_text().splitlines()
+        caches = sorted(p.name for p in (d / "cache").iterdir())
+        feats = {"fid": fid_metric.load_inception_feature_fn(ckpt, device),
+                 "fid_clip": clip_feature_fn(fid_metric.clip_tower(d / "nozoo", device))}
+        ref = {}
+        for name, fn in feats.items():
+            real = fid_metric.real_stats(d / "real", fn, batch=8)
+            for m in ("m1", "m2"):
+                fake = fid_metric.load_dir(d / m)
+                sf = FIDStats()
+                for i in range(0, len(fake), 8):
+                    sf.update(fn(fake[i:i + 8]))
+                ref[m, name] = frechet_distance(*real, *sf.finalize())
+    rows = {r.split(",")[0]: [float(v) for v in r.split(",")[1:]] for r in lines[1:]}
+    log(f"[eval] fid_metric --device cuda (subprocess, {run_s:.1f} s): {lines}; in-process "
+        f"frechet_distance {ref}; caches {caches}  [{card}]")
+    if lines[0] != "method,fid,fid_clip" or sorted(rows) != ["m1", "m2"]:
+        raise AssertionError(f"fid_metric CSV: {lines}")
+    if caches != ["real_fid.npz", "real_fid_clip.npz"]:
+        raise AssertionError(f"fid_metric caches: {caches}")
+    for m, vals in rows.items():
+        for v, name in zip(vals, ("fid", "fid_clip")):
+            r = ref[m, name]
+            if not (np.isfinite(v) and abs(v - r) <= 1e-6 + 1e-4 * abs(r)):
+                raise AssertionError(f"fid_metric {m} {name}: CSV {v} vs in-process {r}")
+
+
+def mapping_init(seed: int, cfg, device) -> dict:
+    """The generator's mapping network (params["style"]) with its init law,
+    EqualLinear weights N(0,1) / lr_mul and zero biases, from a numpy seed:
+    the zoo's flat 0.05 fill collapses P space onto the biases."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {"style": [{"w": torch.from_numpy(rng.standard_normal(
+        (cfg.style_dim, cfg.style_dim), dtype=np.float32) / np.float32(cfg.lr_mlp)).to(device),
+        "b": torch.zeros(cfg.style_dim, device=device)} for _ in range(cfg.n_mlp)]}
+
+
+def _eval_pspace(device, card: str) -> float:
+    """build_pca_model on the full-width mapping network on the card
+    (100,000 samples in batches of 10,000): X_comp orthonormal to 1e-4, and
+    p_norm_loss on the card within 1e-4 of the CPU's on the same dict."""
+    import torch
+
+    from hairfastgan_torch import pspace
+    from hairfastgan_torch.config import StyleGANConfig
+    from hairfastgan_torch.models import stylegan2
+
+    cfg = StyleGANConfig()
+    gen = mapping_init(5, cfg, device)
+    t0 = time.perf_counter()
+    model = counted("pspace.build_pca_model", lambda: pspace.build_pca_model(
+        gen, None, n_samples=100_000, batch=10_000, cfg=cfg), at_least=0)
+    build_s = time.perf_counter() - t0
+    comp = model["X_comp"].astype(np.float64)
+    ortho = float(np.abs(comp @ comp.T - np.eye(cfg.style_dim)).max())
+    pca = {k: torch.from_numpy(model[k]) for k in pspace.PCA_KEYS}
+    z = torch.randn((4, cfg.style_dim), generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    with torch.no_grad():
+        lat = stylegan2.latent_to_wplus(stylegan2.mapping(gen, z, cfg), cfg.n_latent)
+        card_l = pspace.p_norm_loss({k: v.to(device) for k, v in pca.items()}, lat).item()
+        cpu_l = pspace.p_norm_loss(pca, lat.cpu()).item()
+    rel = abs(card_l - cpu_l) / abs(cpu_l)
+    log(f"[eval] build_pca_model (100,000 samples, batch 10,000, mapping on the card, float64 "
+        f"eigh on the host): {build_s:.2f} s; |X_comp X_comp^T - I| max {ortho:.2e}; stdev "
+        f"{model['X_stdev'][0]:.4f} .. {model['X_stdev'][-1]:.4f}; p_norm_loss card "
+        f"{card_l:.6f} vs CPU {cpu_l:.6f} (rel {rel:.2e})  [{card}]")
+    if ortho > 1e-4 or not np.isfinite(card_l) or rel > 1e-4:
+        raise AssertionError(f"P-space: orthonormality {ortho}, p_norm_loss {card_l} vs {cpu_l}")
+    return build_s
+
+
+def _eval_align_faces(card: str) -> None:
+    """align_faces with --device cuda in a subprocess on three seeded
+    1500x1200 photos and a random full-width STAR star_wflw.pth in the
+    reference layout. Random weights give diffuse heatmaps, so the STAR gate
+    is switched off in the subprocess (as phase 12 does)."""
+    import torch
+    from PIL import Image
+
+    from hairfastgan_torch.zoo import init_star
+
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        (d / "photos").mkdir()
+        (d / "zoo").mkdir()
+        rng = np.random.default_rng(44)
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (1500, 1200, 3), dtype=np.uint8)).save(
+                d / "photos" / f"p{i}.png")
+        torch.save(star_state_dict(init_star(seed=2)), d / "zoo" / "star_wflw.pth")
+        gate_off = ("from hairfastgan_torch.utils import face_align as FA; "
+                    "orig = FA.star_landmark_provider; "
+                    "FA.star_landmark_provider = lambda p, **kw: orig(p, **dict(kw, check=False))")
+        t0 = time.perf_counter()
+        out = run_module("hairfastgan_torch.scripts.align_faces",
+                         ["--input_dir", str(d / "photos"), "--output_dir", str(d / "out"),
+                          "--zoo_dir", str(d / "zoo"), "--device", "cuda"], "align_faces",
+                         prelude=gate_off)
+        run_s = time.perf_counter() - t0
+        shapes = [np.asarray(Image.open(p)).shape for p in sorted((d / "out").glob("*.png"))]
+    log(f"[eval] align_faces --device cuda (subprocess, {run_s:.1f} s; "
+        f"'{out.splitlines()[0]}'): {shapes}  [{card}]")
+    if shapes != [(1024, 1024, 3)] * 3 or "STAR (on cuda)" not in out:
+        raise AssertionError(f"align_faces wrote {shapes}: {out[-500:]}")
+
+
+def _eval_parity_harness(zoo32, device, card: str) -> None:
+    """A golden in the reference's layout from the port's own f32 zero-noise
+    run on the card, at full width; the harness (--device cuda, the zoo
+    through a zoo_torch.pt) must pass it, and fail once Align/face_shape_F
+    is scaled by 1.1."""
+    import contextlib
+    import io
+
+    import torch
+    from PIL import Image
+
+    from hairfastgan_torch.config import HairFastConfig
+    from hairfastgan_torch.params.checkpoint import save_zoo
+    from hairfastgan_torch.scripts import parity_harness as H
+    from hairfastgan_torch.utils.images import to_image_array
+
+    cfg = HairFastConfig()
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        rng = np.random.default_rng(45)
+        paths = [d / f"{name}.png" for name in ("face", "shape", "color")]
+        for p in paths:
+            Image.fromarray(rng.integers(0, 256, (1024, 1024, 3), dtype=np.uint8)).save(p)
+        save_zoo(d / "zoo", zoo32)
+        imgs = [torch.from_numpy(to_image_array(p, 1024))[None].to(device) for p in paths]
+        final, inter = counted("parity_harness golden", lambda: H.run_pipeline(zoo32, imgs, cfg),
+                               at_least=2)
+        write_golden(d / "golden", final, inter)
+        argv = ["--golden_dir", str(d / "golden"), "--face", str(paths[0]), "--shape",
+                str(paths[1]), "--color", str(paths[2]), "--zoo_dir", str(d / "zoo"),
+                "--device", "cuda"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            counted("parity_harness", lambda: H.main(argv), at_least=2)
+        run_s = time.perf_counter() - t0
+        passed = buf.getvalue()
+        az = d / "golden" / "Align" / "face_shape_F.npz"
+        with np.load(az) as z:
+            np.savez(az, latent_F_align=z["latent_F_align"] * 1.1)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                H.main(argv)
+        except SystemExit as e:
+            failed = str(e.code)
+        else:
+            raise AssertionError("the harness passed a golden with F_align scaled by 1.1")
+    log(f"[eval] parity harness --device cuda at full width ({run_s:.1f} s with the zoo's load): "
+        f"{passed.strip().splitlines()[-1]!r}; {len(passed.splitlines()) - 1} checks; "
+        f"dilate_erode launches {LAUNCHES['parity_harness']}; F_align x1.1: exit {failed!r}  "
+        f"[{card}]")
+    if "all stages within tolerance" not in passed or "[FAIL]" in passed:
+        raise AssertionError(f"the harness failed its own golden: {passed[-2000:]}")
+    if "zero:latent_F_align" not in failed:
+        raise AssertionError(f"the perturbed golden failed otherwise: {failed}")
+
+
+def phase_eval(zoo32, device, card: str) -> dict:
+    """The evaluation and offline tools on the card: the upload_res resize,
+    InceptionV3, fid_metric, P-space, align_faces and the parity harness."""
+    out = _eval_upload_res(device, card)
+    out["inception_p50_ms"] = _eval_inception(device, card)
+    _eval_fid_metric(device, card)
+    out["pca_build_s"] = _eval_pspace(device, card)
+    _eval_align_faces(card)
+    _eval_parity_harness(zoo32, device, card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1671,9 +2069,12 @@ def main() -> int:
     ckpt = phase("checkpoint_serve", phase_checkpoint_serve, hf32.zoo, imgs, device, card, p50)
     train = phase("train", phase_train, hf32.zoo, device, card)
     pp = phase("train_pp", phase_train_pp, hf32.zoo, device, card)
+    zoo32 = hf32.zoo
     del hf32
     star_ms = phase("star", phase_star, hf, device, card)
     phase("cli", phase_cli, card)
+    ev = phase("eval", phase_eval, zoo32, device, card)
+    del zoo32
     unchecked = SEEN - CHECKED
     if unchecked:
         raise AssertionError(f"the kernel ran at shapes phase 3 did not check: {sorted(unchecked)}")
@@ -1710,6 +2111,10 @@ def main() -> int:
         f"ms ({pp['remat'][1]:.2f} GiB); disc step {pp['disc'][0]:.2f} ms, R1 {pp['r1_ms']:.2f} "
         f"ms; busy share {pp['profile'][1] / pp['profile'][2]:.3f}; generate_pp_sample "
         f"{pp['generate_pp_sample'][0]:.2f} ms, {pp['generate_pp_sample'][1]} launches")
+    log(f"[summary] eval: InceptionV3 p50 {ev['inception_p50_ms']:.2f} ms per batch of 16 "
+        f"1024^2 images; build_pca_model (100,000 samples) {ev['pca_build_s']:.2f} s; host "
+        f"Keys resize {ev['resize_step']} step(s) from the device bicubic; upload_res=512 "
+        f"agreement Keys {ev['upload_res']['keys']}, LANCZOS {ev['upload_res']['lanczos']}")
     log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
         f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
         f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")

@@ -7,6 +7,11 @@ hairfastgan_torch/_build/, and never taken from a prebuilt file. Where the
 build or the load fails, `native_available()` is False and `native_error()`
 says why; callers decode with PIL instead, the host-decode route of
 utils/images.
+
+The resize needs no codec, so `resize_u8_native` always takes the
+resize-only library built from csrc/resize_u8.cpp, a copy of the loader's
+resize: the upload_res coercion keeps the device resampler's kernel, and the
+same bytes, on a host without libjpeg / libpng headers too.
 """
 
 from __future__ import annotations
@@ -25,27 +30,46 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG.parent / "native" / "hf_loader.cpp"
+RESIZE_SOURCE = _PKG / "csrc" / "resize_u8.cpp"
 BUILD_DIR = _PKG / "_build"
 _U8P = ctypes.POINTER(ctypes.c_ubyte)
 
 
-def build() -> Path:
-    """Compile native/hf_loader.cpp for the host it runs on (-march=native,
-    the flags of the source's own build line) into a library keyed by the
-    source's hash and the host's name; no-op when already built."""
-    key = SOURCE.read_bytes() + platform.node().encode()
-    so = BUILD_DIR / f"hf_loader_{hashlib.sha256(key).hexdigest()[:16]}.so"
+def _build_so(source: Path, stem: str, libs) -> Path:
+    """Compile `source` for the host it runs on (-march=native, the flags of
+    the loader's own build line) into a library keyed by the source's hash
+    and the host's name; no-op when already built."""
+    key = source.read_bytes() + platform.node().encode()
+    so = BUILD_DIR / f"{stem}_{hashlib.sha256(key).hexdigest()[:16]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp),
-           "-ljpeg", "-lpng", "-lpthread"]
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", str(source), "-o", str(tmp),
+           *libs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed ({res.returncode}): {res.stderr.strip()[-2000:]}")
     os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
     return so
+
+
+def build() -> Path:
+    """The full loader: native/hf_loader.cpp, linked with libjpeg and libpng.
+    Its hfl_resize_u8 is bound too, as the reference the resize-only
+    library is tested against."""
+    return _build_so(SOURCE, "hf_loader", ["-ljpeg", "-lpng", "-lpthread"])
+
+
+def build_resize() -> Path:
+    """The resize-only library: csrc/resize_u8.cpp, no codec."""
+    return _build_so(RESIZE_SOURCE, "resize_u8", [])
+
+
+def _bind_resize(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.hfl_resize_u8.restype = ctypes.c_int
+    lib.hfl_resize_u8.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
@@ -63,9 +87,16 @@ def _load() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
                                    ctypes.POINTER(ctypes.c_int)]
     lib.hfl_destroy.restype = None
     lib.hfl_destroy.argtypes = [ctypes.c_void_p]
-    lib.hfl_resize_u8.restype = ctypes.c_int
-    lib.hfl_resize_u8.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
-    return lib, None
+    return _bind_resize(lib), None
+
+
+@functools.lru_cache(maxsize=1)
+def _load_resize_only() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
+    """(the resize-only library, None), or (None, why it could not be built or loaded)."""
+    try:
+        return _bind_resize(ctypes.CDLL(str(build_resize()))), None
+    except (OSError, RuntimeError) as e:
+        return None, f"{type(e).__name__}: {e}"
 
 
 def native_available() -> bool:
@@ -77,6 +108,16 @@ def native_error() -> Optional[str]:
     return _load()[1]
 
 
+def resize_available() -> bool:
+    """True when the resize-only library (the native Keys-bicubic resize) loaded."""
+    return _load_resize_only()[0] is not None
+
+
+def resize_error() -> Optional[str]:
+    """Why the resize-only library is unavailable (None when it loaded)."""
+    return _load_resize_only()[1]
+
+
 def _lib() -> ctypes.CDLL:
     lib, err = _load()
     if lib is None:
@@ -86,13 +127,21 @@ def _lib() -> ctypes.CDLL:
 
 def resize_u8_native(img: np.ndarray, out_size: int) -> np.ndarray:
     """[H,W,3] uint8 -> [out_size,out_size,3] uint8, Keys a=-0.75 bicubic:
-    the kernel of the device resampler (ops/resample.resize bicubic)."""
+    the kernel of the device resampler (ops/resample.resize bicubic), from
+    the resize-only library."""
+    lib, err = _load_resize_only()
+    if lib is None:
+        raise RuntimeError(f"no native resize is available: {err}")
+    return _resize_with(lib, img, out_size)
+
+
+def _resize_with(lib: ctypes.CDLL, img: np.ndarray, out_size: int) -> np.ndarray:
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
         raise ValueError(f"resize_u8_native takes [H,W,3] uint8, got {img.shape} {img.dtype}")
     img = np.ascontiguousarray(img)
     out = np.empty((out_size, out_size, 3), np.uint8)
-    if not _lib().hfl_resize_u8(img.ctypes.data_as(_U8P), img.shape[0], img.shape[1],
-                                out_size, out.ctypes.data_as(_U8P)):
+    if not lib.hfl_resize_u8(img.ctypes.data_as(_U8P), img.shape[0], img.shape[1],
+                             out_size, out.ctypes.data_as(_U8P)):
         raise IOError("native resize failed")
     return out
 

@@ -2,9 +2,10 @@
 
 Rebuilds the reference's quality harness (scripts/fid_metric.py:24-66,
 utils/train.py:125-161): Frechet distance between gaussian fits of feature
-distributions: CLIP ViT-B/32 image embeddings for "FID-CLIP" (ClipModel,
-models/Encoders.py:140-160). InceptionV3 features for classic FID come
-with models/inception (not ported yet).
+distributions: InceptionV3 pool3 features for classic FID
+(`inception_feature_fn`, models/inception) and CLIP ViT-B/32 image
+embeddings for "FID-CLIP" (`clip_feature_fn`; ClipModel,
+models/Encoders.py:140-160).
 
 Feature extraction is pluggable (`feature_fn(images01) -> [B, D]`, numpy in
 and out); the batched streaming accumulator keeps only sum / outer-sum so
@@ -86,6 +87,23 @@ def fid_to(real, images, feature_fn, batch: int = 64) -> float:
     for i in range(0, len(images), batch):
         sf.update(feature_fn(images[i:i + batch]))
     return frechet_distance(*real, *sf.finalize())
+
+
+def inception_feature_fn(inception_params):
+    """images01 [B,H,W,3] (numpy, [0,1]) -> pool3 features [B,2048] float32
+    (numpy): classic FID, on the device of `inception_params` in f32
+    (weights convert from torchvision via models/inception.convert_inception)."""
+    from hairfastgan_torch.models.inception import inception_features_nchw
+
+    ref = inception_params["stem"]["c1"]["conv"]["w"]
+
+    @torch.no_grad()
+    def fn(images01):
+        x = torch.as_tensor(np.asarray(images01, np.float32)).to(ref.device)
+        f = inception_features_nchw(inception_params, x.permute(0, 3, 1, 2))
+        return f.float().cpu().numpy()
+
+    return fn
 
 
 def clip_feature_fn(clip_params):

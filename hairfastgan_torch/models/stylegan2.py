@@ -1,7 +1,8 @@
 """StyleGAN2 config-f synthesis with the HairFast layer-slice API, PyTorch.
 
 Counterpart of hairfastgan_tpu/models/stylegan2.py (reference
-models/stylegan2/model.py:368-594). Layer pairs:
+models/stylegan2/model.py:368-594): the mapping network (`mapping`,
+`mean_latent`), W -> W+ broadcast, and the sliced synthesis. Layer pairs:
   pair 0: conv1 @4x4 + to_rgb1                      styles latent[:, 0], [:, 1]
   pair l in 1..: up-conv + conv + to_rgb @ 2^(l+2)  styles [:, 2l-1], [:, 2l], [:, 2l+1]
 Noise maps: pair l uses noise[2l-1], noise[2l] (pair 0 uses noise[0]).
@@ -18,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from hairfastgan_torch.models.layers import spec
+from hairfastgan_torch.ops.equalized import equal_linear, pixel_norm
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 from hairfastgan_torch.ops.modconv import modulated_conv2d
 from hairfastgan_torch.ops.upfirdn2d import upsample2d
@@ -73,6 +75,30 @@ def make_noise(generator: Optional[torch.Generator], cfg, batch: int = 1,
     device = generator.device if device is None else device
     return [torch.randn((batch, 1, r, r), generator=generator, device=device)
             for r in noise_resolutions(cfg)]
+
+
+def mapping(params, z: Tensor, cfg) -> Tensor:
+    """z [B, style_dim] -> w through PixelNorm + n_mlp EqualLinear(fused_lrelu,
+    lr_mul cfg.lr_mlp) over params["style"]."""
+    x = pixel_norm(z, dim=-1)
+    for lp in params["style"]:
+        x = equal_linear(lp, x, lr_mul=cfg.lr_mlp, activation="fused_lrelu")
+    return x
+
+
+def mean_latent(params, generator: torch.Generator, n: int, cfg) -> Tensor:
+    """Mean w [1, style_dim] of n mapped gaussian z drawn from `generator`
+    (on the generator's device)."""
+    z = torch.randn((n, cfg.style_dim), generator=generator, device=generator.device)
+    return mapping(params, z, cfg).mean(dim=0, keepdim=True)
+
+
+def latent_to_wplus(w: Tensor, n_latent: int = 18) -> Tensor:
+    """[B,512] -> [B,n_latent,512] broadcast (reference model.py:515-522);
+    a W+ code passes through."""
+    if w.ndim == 3:
+        return w
+    return w[:, None, :].expand(-1, n_latent, -1)
 
 
 def _styled_conv(p, x: Tensor, style: Tensor, noise: Optional[Tensor], *,
@@ -139,3 +165,10 @@ def synthesis(params, latent: Tensor, *,
                                dtype=dtype)
     return (None if out is None else out.permute(0, 2, 3, 1),
             None if skip is None else skip.permute(0, 2, 3, 1))
+
+
+def generate(params, latent: Tensor, *, noise: Optional[Sequence[Optional[Tensor]]] = None,
+             generator: Optional[torch.Generator] = None, cfg,
+             dtype: torch.dtype = torch.float32) -> Tensor:
+    """Full 0..8 render -> NHWC RGB in [-1, 1] (noise as in `synthesis`)."""
+    return synthesis(params, latent, noise=noise, generator=generator, cfg=cfg, dtype=dtype)[1]

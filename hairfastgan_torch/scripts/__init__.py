@@ -1,4 +1,4 @@
-"""The port's data-generation and training CLIs
+"""The port's data-generation, training and evaluation CLIs
 (`python -m hairfastgan_torch.scripts.<name>`), counterparts of the JAX
 package's scripts/, and the pieces they share."""
 

@@ -53,21 +53,28 @@ def to_image_u8(img: TImage, size: int = 1024) -> np.ndarray:
     float bytes to upload).
 
     A uint8 [size,size,3] array passes through without a copy. A uint8
-    [H,W,3] array of another size is resized by the native loader's Keys
-    bicubic (the kernel of the device resampler), or by PIL's LANCZOS where
-    the native loader is unavailable.
+    [H,W,3] array of another size is resized by the native Keys bicubic
+    (the kernel of the device resampler, from the codec-free resize-only
+    library), or by PIL's LANCZOS where that library does not build
+    (`native_loader.resize_error()` says why).
     """
     if isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3 \
             and img.shape[-1] == 3:
         if img.shape[:2] == (size, size):
             return img
-        if native_loader.native_available():
+        if native_loader.resize_available():
             return native_loader.resize_u8_native(img, size)
-        # resampling u8 directly equals the float round trip below (PIL
-        # resamples the same 8-bit samples) without two float conversions
-        return np.asarray(Image.fromarray(img).resize((size, size), Image.LANCZOS))
+        return resize_u8_lanczos(img, size)
     arr = to_image_array(img, size)
     return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def resize_u8_lanczos(img: np.ndarray, size: int) -> np.ndarray:
+    """[H,W,3] uint8 -> [size,size,3] uint8 by PIL's LANCZOS: to_image_u8's
+    route where the native resize does not build. Resampling u8 directly
+    equals the float round trip of to_image_array (PIL resamples the same
+    8-bit samples) without two float conversions."""
+    return np.asarray(Image.fromarray(img).resize((size, size), Image.LANCZOS))
 
 
 def _same_values(a: np.ndarray, b: np.ndarray) -> bool:

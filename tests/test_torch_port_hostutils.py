@@ -141,6 +141,86 @@ def test_native_loader_reports_build_error(monkeypatch, tmp_path):
         tnl._load.cache_clear()
 
 
+RESIZES = {"1024->512": ((1024, 1024, 3), 512), "1500x1200->1024": ((1500, 1200, 3), 1024)}
+
+
+@pytest.mark.parametrize("case", sorted(RESIZES))
+def test_resize_only_library_equals_loader(case):
+    """The codec-free csrc/resize_u8.cpp gives the full loader's
+    hfl_resize_u8 bytes (both build here)."""
+    shape, out = RESIZES[case]
+    full, err = tnl._load()
+    only, only_err = tnl._load_resize_only()
+    assert full is not None, err
+    assert only is not None, only_err
+    img = np.random.default_rng(31).integers(0, 256, shape, dtype=np.uint8)
+    got = tnl._resize_with(only, img, out)
+    assert got.shape == (out, out, 3)
+    np.testing.assert_array_equal(got, tnl._resize_with(full, img, out))
+
+
+@pytest.mark.parametrize("case", sorted(RESIZES))
+def test_upload_res_keeps_keys_bicubic_without_codec(monkeypatch, case):
+    """Where the codec build fails (a host without jpeglib.h), to_image_u8
+    still resizes with the Keys bicubic, through the resize-only library:
+    the same bytes as the full loader's, not PIL LANCZOS's."""
+    shape, out = RESIZES[case]
+    img = np.random.default_rng(32).integers(0, 256, shape, dtype=np.uint8)
+    keys = tnl.resize_u8_native(img, out)
+
+    def no_codec():
+        raise RuntimeError("g++ failed (1): fatal error: jpeglib.h: No such file or directory")
+
+    monkeypatch.setattr(tnl, "build", no_codec)
+    tnl._load.cache_clear()
+    tnl._load_resize_only.cache_clear()
+    try:
+        assert not tnl.native_available() and "jpeglib.h" in tnl.native_error()
+        assert tnl.resize_available() and tnl.resize_error() is None
+        got = timg.to_image_u8(img, out)
+        np.testing.assert_array_equal(got, keys)
+        assert not np.array_equal(got, timg.resize_u8_lanczos(img, out))
+    finally:
+        tnl._load.cache_clear()
+        tnl._load_resize_only.cache_clear()
+
+
+def test_upload_res_falls_back_to_lanczos_without_any_build(monkeypatch, tmp_path):
+    """Neither library builds: LANCZOS, and resize_error says why the
+    resize-only library did not."""
+    def no_codec():
+        raise RuntimeError("g++ failed (1): jpeglib.h")
+
+    monkeypatch.setattr(tnl, "build", no_codec)
+    monkeypatch.setattr(tnl, "RESIZE_SOURCE", tmp_path / "missing_resize.cpp")
+    tnl._load.cache_clear()
+    tnl._load_resize_only.cache_clear()
+    try:
+        img = np.random.default_rng(33).integers(0, 256, (64, 48, 3), dtype=np.uint8)
+        np.testing.assert_array_equal(timg.to_image_u8(img, 32), timg.resize_u8_lanczos(img, 32))
+        assert "missing_resize.cpp" in tnl.resize_error()
+        with pytest.raises(RuntimeError, match="no native resize"):
+            tnl.resize_u8_native(img, 32)
+    finally:
+        tnl._load.cache_clear()
+        tnl._load_resize_only.cache_clear()
+
+
+def test_upload_res_never_resizes_with_the_full_loader(monkeypatch, tmp_path):
+    """The resize comes from the resize-only library alone: with the full
+    loader built and the resize-only build failing, to_image_u8 takes
+    LANCZOS, so every host resizes with the same library."""
+    assert tnl.native_available(), tnl.native_error()
+    monkeypatch.setattr(tnl, "RESIZE_SOURCE", tmp_path / "missing_resize.cpp")
+    tnl._load_resize_only.cache_clear()
+    try:
+        img = np.random.default_rng(34).integers(0, 256, (64, 48, 3), dtype=np.uint8)
+        assert not tnl.resize_available()
+        np.testing.assert_array_equal(timg.to_image_u8(img, 32), timg.resize_u8_lanczos(img, 32))
+    finally:
+        tnl._load_resize_only.cache_clear()
+
+
 def _landmarks(rng, n, center, scale):
     return center + rng.standard_normal((n, 2)) * scale
 

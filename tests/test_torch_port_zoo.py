@@ -162,6 +162,9 @@ import hairfastgan_torch.scripts.train_blending, hairfastgan_torch.scripts.train
 import hairfastgan_torch.scripts.gen_pp_data, hairfastgan_torch.scripts.train_pp
 import hairfastgan_torch.scripts.fid_metric, hairfastgan_torch.eval.fid
 import hairfastgan_torch.params.nvlabs
+import hairfastgan_torch.pspace, hairfastgan_torch.models.inception
+import hairfastgan_torch.scripts.align_faces, hairfastgan_torch.scripts.parity_harness
+import hairfastgan_torch.scripts.upload_res_agreement
 import hairfastgan_torch.train.datagen, hairfastgan_torch.losses
 from hairfastgan_torch.train.blending import make_blending_train_step
 from hairfastgan_torch.train.pp import make_pp_train_steps
@@ -189,6 +192,10 @@ pp_batch = [torch.from_numpy(rng.random((1, 256, 256, c), dtype=np.float32)) for
 _, _, aux = pp(zoo["post_process"], ptx.init(zoo["post_process"]), *pp_batch,
                init_discriminator(cfg.stylegan), 0.5)
 assert np.isfinite(float(aux["loss"])) and float(aux["adv"]) != 0
+from hairfastgan_torch.eval.fid import inception_feature_fn
+from hairfastgan_torch.models.inception import init_inception
+feats = inception_feature_fn(init_inception(0))(rng.random((1, 32, 32, 3), dtype=np.float32))
+assert feats.shape == (1, 2048) and np.isfinite(feats).all()
 left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
 assert not left, left
 print("SWAPPED", out.shape, "STEPPED")
@@ -197,9 +204,10 @@ print("SWAPPED", out.shape, "STEPPED")
 
 def test_port_runs_with_jax_blocked():
     """With jax and the JAX package unimportable, the port's entry points
-    (the training scripts included) import, and a micro swap, a --tiny
-    blending train step and a --micro PostProcess step with the
-    discriminator run on the CPU, in a fresh interpreter."""
+    (the training and evaluation scripts included) import, and a micro
+    swap, a --tiny blending train step, a --micro PostProcess step with the
+    discriminator and InceptionV3 features run on the CPU, in a fresh
+    interpreter."""
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
                          timeout=300, cwd=PORT.parent)
     assert res.returncode == 0, res.stderr[-3000:]
