@@ -56,6 +56,15 @@ Phases (any failure exits nonzero and prints no result line):
      p_norm_loss card vs CPU); align_faces --device cuda in a subprocess;
      the parity harness at full width passing a golden of the port's own
      f32 run and failing it once perturbed
+ 15. parallel: the multi-device layer at full width, on meshes of the
+     visible cards, or of the one card repeated ([cuda:0] * n: the math,
+     not the speed): swap_batch's per-shard swap at B=4 over 2 (f32 rows
+     against B=1 swaps) and swap_batch B=8 over 2 in bf16; the H-band
+     sharded swap over 2 and 4 bands against the unbanded swap (f32, the
+     BiSeNet labels, the moves, 2 launches; halo=1 load-bearing; bf16 p50
+     and peak memory beside the unbanded swap's); a data-parallel blending
+     step at 1024^2 and the micro discriminator step in float64 against one
+     device, with the stddev groups over the global batch
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -207,7 +216,9 @@ def phase_kernel(device) -> float:
     # 30, ragged tiles (37 rows, 300 and 3000 columns), swap_batch B=8's and
     # swap_stream batch 4's masks, and the --micro CLI's 128^2 composite
     # the training data generators' at B=2 (the blending sample's 3b masks,
-    # generate_mask16's b masks)
+    # generate_mask16's b masks); phase 15's shards and bands launch at
+    # shapes already here: [6,...] f32 (B=4 over 2), [12,...] bf16 (B=8
+    # over 2) and [3,...] both (a banded swap runs the kernel on the lead)
     shapes = {(3, 256, 256, 1): (1, 3, 5), (1, 256, 256, 1): (1, 3, 5), (2, 37, 300, 1): (1, 3, 5),
               (1, 1024, 1024, 1): (30,), (2, 1024, 1024, 1): (30,), (1, 37, 3000, 1): (30,),
               (24, 256, 256, 1): (5,), (12, 256, 256, 1): (5,), (1, 128, 128, 1): (30,),
@@ -2027,6 +2038,368 @@ def phase_eval(zoo32, device, card: str) -> dict:
     return out
 
 
+def _centered_clip(clip, crops):
+    """The CLIP tower with ln_post's beta set so that the embeddings of
+    `crops` (NHWC [-1,1]) average to zero: a random tower embeds every image
+    along nearly one direction, so 1 - cos losses would sit at the f32 noise
+    floor; centred, they are O(1)."""
+    import torch
+
+    from hairfastgan_torch.models import encoders
+
+    c = dict(clip, ln_post=dict(clip["ln_post"], beta=torch.zeros_like(clip["ln_post"]["beta"])))
+    with torch.no_grad():
+        e0 = encoders.clip_image_embed(c, crops)
+        c["ln_post"]["beta"] = -(e0.mean(0) @ torch.linalg.pinv(c["proj"]))
+    return c
+
+
+def _loss_grads(params, fn, *args):
+    """(loss, [gradient per leaf]) of fn(params, *args) by one backward."""
+    import torch
+
+    from hairfastgan_torch.train.common import tensor_leaves
+
+    leaves = tensor_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = fn(params, *args)[0]
+    loss.backward()
+    grads = [torch.zeros_like(t) if t.grad is None else t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def _gaps(one, other):
+    """max |d loss| / |loss|, max |d grad| / max |grad| of `other` against `one`."""
+    (l1, g1), (l2, g2) = one, other
+    scale = max(float(g.abs().max()) for g in g1)
+    return (abs(l2 - l1) / abs(l1),
+            max(float((a - b).abs().max()) for a, b in zip(g2, g1)) / scale)
+
+
+def _banded_runs(zoo32, trip, cfg, dtype, runs):
+    """Each of `runs` (name -> swap fn or None for the unbanded hair_fast)
+    on the triple `trip`, with every BiSeNet parse (input, labels) and the
+    banded final render's raw bands [-1,1] recorded: name -> (final, parses,
+    raw final or None)."""
+    import torch
+
+    from hairfastgan_torch.models import bisenet
+    from hairfastgan_torch.pipeline import blending as B
+    from hairfastgan_torch.pipeline.swap import hair_fast
+
+    seg, banded = bisenet.segment_256_nchw, B.sharded_synthesis
+    out = {}
+    for name, swap in runs.items():
+        parses, raw = [], []
+
+        def rec_seg(p, x):
+            y = seg(p, x)
+            parses.append((x, y))
+            return y
+
+        def rec_band(*a, **k):
+            r = banded(*a, **k)
+            if not k.get("gather", True):
+                raw.append(torch.cat([x.to(trip[0].device) for x in r], dim=2))
+            return r
+
+        bisenet.segment_256_nchw, B.sharded_synthesis = rec_seg, rec_band
+        try:
+            with torch.inference_mode():
+                final = (hair_fast(zoo32, *trip, cfg=cfg, dtype=dtype) if swap is None
+                         else swap(zoo32, *trip))
+        finally:
+            bisenet.segment_256_nchw, B.sharded_synthesis = seg, banded
+        out[name] = (final, parses, raw[0] if raw else None)
+    return out
+
+
+def _replayed(zoo32, trip, swap, parses):
+    """The banded swap with every BiSeNet parse replaced, in call order, by
+    the labels of `parses` (the unbanded run's): the rest of the swap given
+    the same masks."""
+    import torch
+
+    from hairfastgan_torch.models import bisenet
+
+    seg, it = bisenet.segment_256_nchw, iter(parses)
+    bisenet.segment_256_nchw = lambda p, x: next(it)[1]
+    try:
+        with torch.inference_mode():
+            return swap(zoo32, *trip)
+    finally:
+        bisenet.segment_256_nchw = seg
+
+
+def phase_parallel(hf, zoo32, device, card: str, cfg=None) -> dict:
+    """The multi-device layer at full width on phase 4's zoos: swap_batch's
+    data-parallel branch (f32 rows against B=1 swaps, bf16 against one
+    device), the H-band spatially sharded swap over 2 and 4 bands (f32
+    against the unbanded swap, its moves and launches, p50 and peak memory
+    beside the unbanded swap's, halo=1 load-bearing), and data-parallel
+    training (a full-width blending step; the micro discriminator step in
+    float64 with its stddev over the global batch). The meshes are the
+    visible cards when there are enough, else the one card repeated. `cfg`
+    (default HairFastConfig()) is the zoos' config; the bands start at half
+    its size (512 at full width)."""
+    import torch
+
+    from hairfastgan_torch.api import HairFast
+    from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
+    from hairfastgan_torch.models import stylegan2_discriminator as Dsc
+    from hairfastgan_torch.params.bridge import map_tree
+    from hairfastgan_torch.parallel import mesh, spatial
+    from hairfastgan_torch.pipeline.swap import hair_fast
+    from hairfastgan_torch.train import blending as TB
+    from hairfastgan_torch.train import datagen as Dg
+    from hairfastgan_torch.train import pp as P
+    from hairfastgan_torch.train.common import (adam_with_clip, make_train_step, shard_loss,
+                                                tensor_leaves)
+    from hairfastgan_torch.zoo import init_discriminator
+
+    cards = mesh.local_devices(device)
+
+    def devices(n):
+        return cards[:n] if len(cards) >= n else [cards[0]] * n
+
+    def moves():
+        return {k: v for k, v in mesh.MOVES.items() if v}
+
+    distinct = len(cards) >= 2
+    log(f"[parallel] {len(cards)} card(s): the meshes are "
+        + ("the visible cards" if distinct else f"[{cards[0]}] * n, the one card repeated: "
+           "every line of the sharding runs, which checks the math, not the speed"))
+    out = {}
+    local = mesh.local_devices
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # 1. swap_batch's data-parallel branch. f32 at zero noise: the
+        # branch's per-shard swap over 2 (B=4, 2 rows a shard) against B=1
+        # swaps (with noise a shard's 2 rows draw other noise than B=1 does)
+        cfg32 = dataclasses.replace(cfg or HairFastConfig(), compute_dtype="float32")
+        hf32 = HairFast(cfg32, zoo=zoo32, device=device)
+        size = cfg32.stylegan.size
+        from_res = size // 2
+        rng = np.random.default_rng(15)
+        trip = [rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8) for _ in range(3)]
+        plan2 = mesh.make_mesh(devices=devices(2))
+        reps = mesh.replicate(plan2, zoo32)
+        host = [torch.from_numpy(a[:4]) for a in trip]
+        host = [h.pin_memory() for h in host] if device.type == "cuda" else host
+        mesh.MOVES.clear()
+        dp4 = counted("parallel data_parallel B=4 f32", lambda: mesh.data_parallel(
+            plan2, lambda z, f, s, c: hf32._serve("distinct", f, s, c, None, False, size, z),
+            (False, True, True, True))(reps, *host), at_least=4)
+        dp_moves = moves()
+        with torch.inference_mode():
+            rows = [float((dp4[j] - hair_fast(zoo32, *(h[j:j + 1].to(device) for h in host),
+                                              cfg=cfg32)[0]).abs().max()) for j in range(4)]
+        mesh.local_devices = lambda d: devices(2)
+        mesh.MOVES.clear()
+        dp8 = counted("parallel swap_batch B=8 bf16",
+                      lambda: hf.swap_batch(*trip, output="uint8"), at_least=4)
+        sb_moves = moves()
+        mesh.local_devices = lambda d: cards[:1]  # the reference runs on one device
+        dev8 = np.abs(dp8.astype(np.int16) - hf.swap_batch(*trip, output="uint8").astype(np.int16))
+        mesh.local_devices = local
+        n4, n8 = (LAUNCHES[f"parallel {k}"] for k in ("data_parallel B=4 f32",
+                                                       "swap_batch B=8 bf16"))
+        out["swap_batch"] = {"rows_f32": rows, "bf16_u8_max": int(dev8.max()),
+                             "bf16_u8_mean": float(dev8.mean()), "moves": sb_moves}
+        log(f"[parallel] swap_batch's per-shard swap, B=4 over 2 at zero noise (f32, TF32 "
+            f"off): rows vs B=1 swaps max |diff| {', '.join(f'{r:.2e}' for r in rows)} (limit "
+            f"1e-3); moves {dp_moves}; dilate_erode launches {n4} (2 per shard). swap_batch "
+            f"B=8 over 2 bf16 uint8 vs one device: max {int(dev8.max())} step(s), mean "
+            f"{dev8.mean():.3f} (each shard draws the one seed's noise for its 4 rows, the one "
+            f"device for its 8); moves {sb_moves}; launches {n8}  [{card}]")
+        # the zoo's Replicas are made on swap_batch's first call with the mesh
+        if (max(rows) > 1e-3 or dp_moves != {"scatter": 3, "gather": 1} or n4 != 4 or n8 != 4
+                or sb_moves != {"broadcast": 1, "scatter": 3, "gather": 1}):
+            raise AssertionError(f"data-parallel swap: rows {rows}, moves {dp_moves} "
+                                 f"{sb_moves}, launches {n4} {n8}")
+        del hf32, dp4, dp8, reps, host
+
+        # 2. the banded swap, f32, TF32 off, with the generator drawn by its
+        # real init's law (weights N(0, 1) under the equalized-lr scale,
+        # modulation biases around 1): with the random fill's N(0, 0.05)
+        # the renders carry almost no signal (halo=1 moved the micro
+        # image by 2e-4), and a wrong band would hide under the tolerance
+        zoo32 = dict(zoo32, generator=map_tree(zoo32["generator"], lambda k, t: (
+            t * 20.0 if k == "w" else t + 1.0 if k == "b" else t.clone())))
+        t1 = [torch.from_numpy(a[:1]).to(device) for a in trip]
+        swaps = {n: spatial.make_sharded_swap(mesh.make_mesh(devices=devices(n)), cfg=cfg32,
+                                              from_res=from_res, halo=8) for n in (2, 4)}
+        runs = _banded_runs(zoo32, t1, cfg32, torch.float32, {"plain": None})
+        ref, ref_parses, _ = runs["plain"]
+        band = {}
+        for n, swap in swaps.items():
+            mesh.MOVES.clear()
+            runs.update(counted(f"parallel banded swap n={n}", lambda: _banded_runs(
+                zoo32, t1, cfg32, torch.float32, {n: swap}), at_least=2))
+            got, parses, _ = runs[n]
+            err = float((got - ref).abs().max())
+            flips = sum(int((y != yr).sum()) for (_, y), (_, yr) in zip(parses, ref_parses))
+            render = max(float((x - xr).abs().max()) for (x, _), (xr, _) in zip(parses, ref_parses))
+            band[n] = {"err": err, "flips": flips, "render_err": render, "moves": moves(),
+                       "launches": LAUNCHES[f"parallel banded swap n={n}"]}
+            if err > 1e-3:  # a label flipped on a near-tie: hold the renders and the rest
+                band[n]["replayed_err"] = float((_replayed(zoo32, t1, swap, ref_parses)
+                                                 - ref).abs().max())
+            log(f"[parallel] banded swap over {n} (from_res {from_res}, halo 8, f32, TF32 off) vs the "
+                f"unbanded swap: max |diff| {err:.2e} (limit 1e-3); BiSeNet labels flipped "
+                f"{flips}; parsed renders max |diff| {render:.2e}; "
+                + (f"with the unbanded labels {band[n]['replayed_err']:.2e}; " if err > 1e-3
+                   else "") + f"moves {band[n]['moves']}; dilate_erode launches "
+                f"{band[n]['launches']}  [{card}]")
+            # the generator is copied to the band cards once, when they are distinct
+            want = {"scatter": 4, "gather": 4,
+                    **({"broadcast": 1} if len(set(devices(n))) > 1 else {})}
+            held = err <= 1e-3 or (flips > 0 and render <= 1e-4
+                                   and band[n]["replayed_err"] <= 1e-3)
+            if not held or band[n]["moves"] != want or band[n]["launches"] != 2:
+                raise AssertionError(f"banded swap over {n}: {band[n]}")
+        out["banded"] = band
+
+        # halo=1 over 4 bands: the halo is load-bearing
+        h1 = spatial.make_sharded_swap(mesh.make_mesh(devices=devices(4)), cfg=cfg32,
+                                       from_res=from_res, halo=1)
+        runs.update(_banded_runs(zoo32, t1, cfg32, torch.float32, {"halo1": h1}))
+        h1_err = float((runs["halo1"][0] - ref).abs().max())
+        h1_raw = float((runs["halo1"][2] - runs[4][2]).abs().max())
+        out["halo1"] = (h1_err, h1_raw)
+        log(f"[parallel] halo=1 over 4 bands: final image vs the unbanded swap max |diff| "
+            f"{h1_err:.3e}; raw final render [-1,1] vs halo=8's {h1_raw:.3e} (either must "
+            f"exceed 1e-2)")
+        if max(h1_err, h1_raw) <= 1e-2:
+            raise AssertionError(f"halo=1 is as good as halo=8: {out['halo1']}")
+        del runs, ref_parses
+
+        # p50 of 5 swaps each, bf16 (the serving dtype), in turns; peak memory
+        bswaps = {"unbanded": lambda: hair_fast(hf.zoo, *t1, cfg=hf.cfg, dtype=hf.dtype)}
+        for n in (2, 4):
+            sw = spatial.make_sharded_swap(mesh.make_mesh(devices=devices(n)), cfg=hf.cfg,
+                                           dtype=hf.dtype, from_res=from_res, halo=8)
+            bswaps[f"banded n={n}"] = lambda sw=sw: sw(hf.zoo, *t1)
+        ms, peak = collections.defaultdict(list), {}
+        with torch.inference_mode():
+            for name, fn in bswaps.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                fn()
+                torch.cuda.synchronize()
+                peak[name] = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+            for _ in range(5):
+                for name, fn in bswaps.items():
+                    ms[name].append(_event_ms(fn)[1])
+        out["p50"] = {k: statistics.median(v) for k, v in ms.items()}
+        out["peak"] = peak
+        log(f"[parallel] swap bf16 B=1 p50 of 5 (CUDA events, in turns): "
+            + "; ".join(f"{k} {out['p50'][k]:.2f} ms (peak {peak[k]:.2f} GiB above resident)"
+                        for k in bswaps)
+            + ("" if distinct else "; one card: the bands run one after another, so this is "
+               "the cost of the banding, not a multi-card latency")
+            + f"  [{card}]")
+
+        # 3. data-parallel training: one full-width blending step over 2
+        rng = np.random.default_rng(16)
+        face, shape, color = (torch.from_numpy(rng.random((2, size, size, 3), np.float32))
+                              .to(device) for _ in range(3))
+        row = Dg.generate_blending_sample(zoo32, face, shape, color, cfg32)
+        blend_row = row_abi(cfg32, 2)[0]
+        batch = tuple(row[k] for k in blend_row)
+        crops = torch.cat([row["face_i"] * row["target_mask"], row["color_i"] * row["HM_3E"]])
+        frozen = {"generator": zoo32["generator"],
+                  "clip": _centered_clip(zoo32["blending"]["clip"], crops)}
+        plan = mesh.make_mesh(devices=devices(2))
+        lr = 1e-3
+
+        def loss_fn(p, fr, *b):
+            return TB.blending_loss(p, fr, b, cfg32)
+
+        def mods():
+            return {"mods": map_tree(zoo32["blending"]["mods"], lambda _, t: t.clone())}
+
+        one = _loss_grads(mods(), loss_fn, frozen, *batch)
+        reps = mesh.replicate(plan, frozen)
+        two = _loss_grads(mods(), shard_loss(plan, loss_fn), reps, *batch)
+        d_loss, d_grad = _gaps(one, two)
+        # the steps run at 1e-3 of the loss (as phase 10's card-vs-CPU steps):
+        # Adam's first step is lr * sign(g) for |g| >> eps, so a coordinate
+        # whose gradient is at the f32 noise floor could flip by 2 lr; at
+        # 1e-3 of it every coordinate's step stays linear in g
+        def scaled(p, fr, *b):
+            loss, aux = loss_fn(p, fr, *b)
+            return loss * 1e-3, aux
+
+        after = []
+        for pl in (None, plan):
+            tx = adam_with_clip(lr)
+            step = make_train_step(scaled, tx, frozen=frozen, plan=pl)
+            params = mods()
+            mesh.MOVES.clear()
+            step(params, tx.init(params), *batch)
+            after.append(([t.detach() for t in tensor_leaves(params)], moves()))
+        d_param = max(float((a - b).abs().max()) for a, b in zip(after[0][0], after[1][0]))
+        out["blend_step"] = (one[0], d_loss, d_grad, d_param, after[1][1])
+        log(f"[parallel] blending step B=2 at {size}^2 over 2 vs one device (f32, TF32 off, CLIP "
+            f"centred on the batch's crops, the Adam step at 1e-3 of the loss): loss {one[0]:.6f}, max |d loss| {d_loss:.2e} of it; "
+            f"max |d grad| {d_grad:.2e} of max |grad|; max |d param| after Adam {d_param:.2e} "
+            f"(lr {lr}); limits (1e-5, 1e-4, lr/5); a step's moves {after[1][1]}  [{card}]")
+        want = {"scatter": 8, "broadcast": 1, "reduce": 1}
+        if d_loss > 1e-5 or d_grad > 1e-4 or d_param > lr / 5 or after[1][1] != want:
+            raise AssertionError(f"data-parallel blending step: {out['blend_step']}")
+        del one, two, reps, after, frozen, row, batch, crops
+
+        # the micro discriminator step at B=8 over 2 in float64
+        d = map_tree(init_discriminator(StyleGANConfig(size=128, max_channels=32), seed=6,
+                                        device=device), lambda _, t: t.double())
+        drng = np.random.default_rng(17)
+        real, fake = (torch.from_numpy(drng.uniform(-1, 1, (8, 128, 128, 3))).to(device)
+                      for _ in range(2))
+
+        def dcopy():
+            return map_tree(d, lambda _, t: t.clone())
+
+        mesh.MOVES.clear()
+        one = _loss_grads(dcopy(), P.pp_disc_loss, real, fake)
+        two = _loss_grads(dcopy(), lambda p, r, f: P.pp_disc_loss(p, r, f, plan), real, fake)
+        d_moves = moves()
+        gaps = _gaps(one, two)
+        after = []
+        for pl in (None, plan):
+            _, dstep, r1_step, _, d_tx = P.make_pp_train_steps({}, lr=lr, use_adv=True, plan=pl)
+            params = dcopy()
+            dstep(params, d_tx.init(params), real, fake)
+            after.append(([t.detach() for t in tensor_leaves(params)], float(r1_step(d, real))))
+        d_param = max(float((a - b).abs().max()) for a, b in zip(after[0][0], after[1][0]))
+        with torch.no_grad():
+            logits = Dsc.discriminator(d, real)
+            per_shard = torch.cat([Dsc.discriminator(d, x) for x in real.chunk(2)])
+        shard_gap = float((per_shard - logits).abs().max())
+        r1_gap = abs(after[1][1] - after[0][1]) / abs(after[0][1])
+        out["disc_step"] = (abs(two[0] - one[0]), gaps[1], d_param, r1_gap, shard_gap, d_moves)
+        log(f"[parallel] discriminator step (128^2 at 32 channels, float64) B=8 over 2 vs one "
+            f"device: |d loss| {abs(two[0] - one[0]):.2e}, max |d grad| {gaps[1]:.2e} of max "
+            f"|grad|, max |d param| after Adam {d_param:.2e}, R1 {r1_gap:.2e} relative (limit "
+            f"1e-10 each); per-shard stddev groups would move the logits by {shard_gap:.3e}; "
+            f"moves {d_moves}  [{card}]")
+        want = {"broadcast": 1, "scatter": 4, "gather": 2, "reduce": 1}
+        if (max(abs(two[0] - one[0]), gaps[1], d_param, r1_gap) > 1e-10 or shard_gap <= 1e-6
+                or d_moves != want):
+            raise AssertionError(f"data-parallel discriminator step: {out['disc_step']}")
+    finally:
+        mesh.local_devices = local
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2074,6 +2447,7 @@ def main() -> int:
     star_ms = phase("star", phase_star, hf, device, card)
     phase("cli", phase_cli, card)
     ev = phase("eval", phase_eval, zoo32, device, card)
+    par = phase("parallel", phase_parallel, hf, zoo32, device, card)
     del zoo32
     unchecked = SEEN - CHECKED
     if unchecked:
@@ -2115,6 +2489,12 @@ def main() -> int:
         f"1024^2 images; build_pca_model (100,000 samples) {ev['pca_build_s']:.2f} s; host "
         f"Keys resize {ev['resize_step']} step(s) from the device bicubic; upload_res=512 "
         f"agreement Keys {ev['upload_res']['keys']}, LANCZOS {ev['upload_res']['lanczos']}")
+    log(f"[summary] parallel ({'distinct cards' if torch.cuda.device_count() > 1 else 'one card repeated'}): "
+        f"swap bf16 B=1 p50 {', '.join(f'{k} {v:.2f} ms' for k, v in par['p50'].items())}; "
+        f"banded f32 max |diff| n=2 {par['banded'][2]['err']:.2e}, n=4 "
+        f"{par['banded'][4]['err']:.2e}; halo=1 {par['halo1'][0]:.3e}; data-parallel "
+        f"swap_batch rows {max(par['swap_batch']['rows_f32']):.2e}; blending step d grad "
+        f"{par['blend_step'][2]:.2e}; disc step d grad {par['disc_step'][1]:.2e}")
     log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
         f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
         f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")

@@ -29,6 +29,7 @@ import torch
 from hairfastgan_torch.config import HairFastConfig, StyleGANConfig
 from hairfastgan_torch.data import native_loader
 from hairfastgan_torch.ops.resample import bicubic_downsample
+from hairfastgan_torch.parallel import mesh
 from hairfastgan_torch.params.bridge import map_tree
 from hairfastgan_torch.pipeline.composite import poisson_composite
 from hairfastgan_torch.pipeline.swap import check_config, hair_fast, swap_cases
@@ -76,6 +77,7 @@ class HairFast:
         self.zoo = cast_zoo(zoo, self.dtype) if self.dtype != torch.float32 else zoo
         self.bench = BenchSession("swap")
         self.stream_loader = None  # the decoder the last swap_stream used
+        self._replicas = {}  # tuple of mesh devices -> the zoo on each (swap_batch)
 
     # -- device helpers --------------------------------------------------
 
@@ -83,15 +85,18 @@ class HairFast:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _to_device(self, a) -> torch.Tensor:
-        """ndarray (or tensor) -> tensor on the device. To a GPU through
-        pinned memory without blocking the host, so uploads queue behind
-        the batches already launched instead of waiting for them."""
+    def _host_tensor(self, a) -> torch.Tensor:
+        """ndarray (or host tensor) -> host tensor, pinned when the device is
+        a GPU, so that copies from it queue without blocking the host."""
         if not isinstance(a, torch.Tensor):  # torch wants writable arrays
             a = torch.from_numpy(np.require(a, requirements="CW"))
-        if self.device.type != "cuda":
-            return a.to(self.device)
-        return a.pin_memory().to(self.device, non_blocking=True)
+        return a.pin_memory() if self.device.type == "cuda" else a
+
+    def _to_device(self, a) -> torch.Tensor:
+        """ndarray (or host tensor) -> tensor on the device. To a GPU through
+        pinned memory without blocking the host, so uploads queue behind
+        the batches already launched instead of waiting for them."""
+        return self._host_tensor(a).to(self.device, non_blocking=True)
 
     def _upload(self, imgs: Sequence[np.ndarray]):
         """[H,W,3] arrays -> [1,H,W,3] device tensors; the same object
@@ -154,10 +159,12 @@ class HairFast:
         return bicubic_downsample(final.permute(0, 3, 1, 2), size // out_res).permute(0, 2, 3, 1)
 
     def _serve(self, case: str, face, shape, color, generator, u8: bool,
-               out_res: int) -> torch.Tensor:
-        """hair_fast plus the response levers, all on the device."""
+               out_res: int, zoo: Optional[Dict] = None) -> torch.Tensor:
+        """hair_fast plus the response levers, all on the device; `zoo` is
+        the inputs' device's copy of the zoo (self.zoo when None)."""
+        zoo = self.zoo if zoo is None else zoo
         with torch.inference_mode():
-            final = self._downsample(hair_fast(self.zoo, face, shape, color, case=case,
+            final = self._downsample(hair_fast(zoo, face, shape, color, case=case,
                                                cfg=self.cfg, dtype=self.dtype,
                                                generator=generator), out_res)
             return quantize_u8(final) if u8 else final
@@ -283,16 +290,42 @@ class HairFast:
 
     def swap_batch(self, faces, shapes, colors, case: str = "distinct",
                    output: str = "float32") -> np.ndarray:
-        """Batched triples [B,H,W,3] (uint8 or [0,1] float) -> [B,H,W,3] on
-        one device. Batches beyond cfg.max_batch_per_dispatch run as chunks
-        of that size; the chunk starting at row i draws its noise from a
-        generator seeded with chunk_seed(cfg.seed, i), so a batch that fits
-        in one chunk draws from chunk_seed(cfg.seed, 0). output="uint8"
-        quantizes on the device."""
+        """Batched triples [B,H,W,3] (uint8 or [0,1] float) -> [B,H,W,3].
+
+        With n > 1 local devices (parallel.mesh.local_devices) and B % n == 0
+        the batch is split over a data mesh of all n: each device runs the
+        plain B/n-transfer swap on its own copy of the zoo, and nothing
+        crosses devices but the inputs' shards and the rows gathered back,
+        so each row equals a B=1 `swap` of that triple at zero noise. As in
+        the JAX package every shard draws its noise from the same seed,
+        chunk_seed(cfg.seed, 0).
+
+        Otherwise the batch runs on the one device, in chunks of
+        cfg.max_batch_per_dispatch; the chunk starting at row i draws its
+        noise from a generator seeded with chunk_seed(cfg.seed, i), so a
+        batch that fits in one chunk draws from chunk_seed(cfg.seed, 0).
+        output="uint8" quantizes on the device(s)."""
         u8 = output == "uint8"
         b = len(faces)
-        chunk = self.cfg.max_batch_per_dispatch or b
         size = self.cfg.stylegan.size
+        devs = mesh.local_devices(self.device)
+        if len(devs) > 1 and b % len(devs) == 0:
+            plan = mesh.make_mesh(devices=devs)
+            key = tuple(devs)
+            if key not in self._replicas:
+                self._replicas[key] = mesh.replicate(plan, self.zoo)
+            seed = chunk_seed(self.cfg.seed, 0)
+
+            def shard(zoo, face, shape, color):
+                g = torch.Generator(device=face.device)
+                g.manual_seed(seed)
+                return self._serve(case, face, shape, color, g, u8, size, zoo)
+
+            host = [self._host_tensor(a) for a in (faces, shapes, colors)]
+            out = mesh.data_parallel(plan, shard, (False, True, True, True))(
+                self._replicas[key], *host)
+            return _host(out)
+        chunk = self.cfg.max_batch_per_dispatch or b
         outs = []
         for i in range(0, b, chunk):
             part = [self._to_device(a[i:i + chunk]) for a in (faces, shapes, colors)]

@@ -106,9 +106,10 @@ class HairFastConfig:
     # execution
     compute_dtype: str = "bfloat16"  # dtype of the activations and the resident weights
     param_dtype: str = "float32"
-    # fields of the JAX package's execution (its device mesh and XLA's
-    # compile cache), kept so that its configs and these read alike; the
-    # port uses neither
+    # fields of the JAX package's execution, kept so that its configs and
+    # these read alike; neither package reads them: the meshes are sized by
+    # parallel/mesh.local_devices (swap_batch) and data_mesh_for_batch
+    # (the trainers), and the port has no compile cache
     mesh_data_axis: int = 1
     compile_cache_dir: Optional[str] = None
 

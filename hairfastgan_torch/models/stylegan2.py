@@ -119,13 +119,15 @@ def _to_rgb(p, x: Tensor, style: Tensor, skip: Optional[Tensor] = None) -> Tenso
 
 def synthesis_nchw(params, latent: Tensor, *, noise: Sequence[Optional[Tensor]],
                    start_layer: int = 0, end_layer: int = 8,
-                   layer_in: Optional[Tensor] = None, cfg,
+                   layer_in: Optional[Tensor] = None, skip: Optional[Tensor] = None, cfg,
                    dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
     """The synthesis loop on NCHW maps; `noise` is a list of num_layers
-    NCHW maps or Nones."""
+    NCHW maps or Nones. `skip` is the ToRGB skip that enters pair
+    `start_layer` (None starts the chain there), as the JAX package's; a
+    start at pair 0 begins a new chain."""
     b = latent.shape[0]
     latent = latent.to(dtype)
-    out = skip = None
+    out = None
     if start_layer == 0:
         x = params["input"].to(dtype).expand(b, -1, -1, -1)
         out = _styled_conv(params["conv1"], x, latent[:, 0], noise[0])
@@ -145,14 +147,15 @@ def synthesis(params, latent: Tensor, *,
               noise: Optional[Sequence[Optional[Tensor]]] = None,
               generator: Optional[torch.Generator] = None,
               start_layer: int = 0, end_layer: int = 8,
-              layer_in: Optional[Tensor] = None, cfg,
+              layer_in: Optional[Tensor] = None, skip: Optional[Tensor] = None, cfg,
               dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
     """Sliced synthesis (Generator.forward, model.py:477-565), JAX layouts.
 
     latent: [B, n_latent, 512] W+ codes. noise: list of num_layers NHWC maps
     [B,res,res,1] (or Nones); without it, `generator` draws fresh noise and
     no generator means zero noise. layer_in: NHWC features entering pair
-    `start_layer`. Returns NHWC (features_out, rgb_skip) of the last pair.
+    `start_layer`; skip: the NHWC rgb skip entering it (a resumed chain).
+    Returns NHWC (features_out, rgb_skip) of the last pair.
     """
     if noise is not None:
         noise = [None if n is None else n.permute(0, 3, 1, 2) for n in noise]
@@ -160,8 +163,10 @@ def synthesis(params, latent: Tensor, *,
         noise = make_noise(generator, cfg, latent.shape[0], latent.device)
     if layer_in is not None:
         layer_in = layer_in.permute(0, 3, 1, 2)
+    if skip is not None:
+        skip = skip.permute(0, 3, 1, 2)
     out, skip = synthesis_nchw(params, latent, noise=noise, start_layer=start_layer,
-                               end_layer=end_layer, layer_in=layer_in, cfg=cfg,
+                               end_layer=end_layer, layer_in=layer_in, skip=skip, cfg=cfg,
                                dtype=dtype)
     return (None if out is None else out.permute(0, 2, 3, 1),
             None if skip is None else skip.permute(0, 2, 3, 1))

@@ -9,6 +9,8 @@ align_images: SEAN encode both images, decode both under the target mask,
 e4e re-embed, then three soft-mask lerps at 32x32 from dilate/erode masks
 (one launch of the morphology kernel for all 3b masks).
 `generator` draws fresh noise for the render and SEAN; None is zero noise.
+`sp` (parallel/spatial.SpatialPlan) H-bands the rotate render's >= from_res
+pairs over its devices and gathers the image for the re-segmentation.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.models import bisenet, encoders, sean, shape_adaptor, stylegan2
 from hairfastgan_torch.ops.morphology import dilate_erode
 from hairfastgan_torch.ops.resample import resize
+from hairfastgan_torch.parallel.spatial import sharded_synthesis
 from hairfastgan_torch.pipeline.embedding import e4e_embed
 
 Tensor = torch.Tensor
@@ -32,28 +35,33 @@ def _hair_mask(labels: Tensor, hair_label: int, dtype) -> Tensor:
 
 
 def _rotate_and_segment(zoo, w2: Tensor, w1_6: Tensor, *, cfg: HairFastConfig, dtype,
-                        generator: Optional[torch.Generator]) -> Tensor:
-    """RotateModel -> full G render -> BiSeNet 256 labels of the rotated image."""
+                        generator: Optional[torch.Generator], sp=None) -> Tensor:
+    """RotateModel -> full G render (banded over `sp`'s devices and
+    gathered, with one) -> BiSeNet 256 labels of the rotated image."""
     rot6 = encoders.rotate_model(zoo["rotate"], w2[:, :6].to(dtype), w1_6.to(dtype))
     rotate_to = torch.cat([rot6, w2[:, 6:].to(dtype)], dim=1)
-    noise = stylegan2.make_noise(generator, cfg.stylegan, w2.shape[0], w2.device)
-    _, i_rot = stylegan2.synthesis_nchw(zoo["generator"], rotate_to, noise=noise,
-                                        end_layer=cfg.stylegan.log_size - 2,
-                                        cfg=cfg.stylegan, dtype=dtype)
+    end = cfg.stylegan.log_size - 2
+    if sp is not None:
+        i_rot = sharded_synthesis(sp, zoo["generator"], rotate_to, end_layer=end,
+                                  cfg=cfg.stylegan, dtype=dtype, gather=True)
+    else:
+        noise = stylegan2.make_noise(generator, cfg.stylegan, w2.shape[0], w2.device)
+        _, i_rot = stylegan2.synthesis_nchw(zoo["generator"], rotate_to, noise=noise,
+                                            end_layer=end, cfg=cfg.stylegan, dtype=dtype)
     return bisenet.segment_256_nchw(zoo["bisenet"], ((i_rot + 1.0) / 2.0).clamp(0.0, 1.0))
 
 
 def shape_module(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor], *,
                  same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                 generator: Optional[torch.Generator] = None, sp=None) -> Dict[str, Tensor]:
     """Target-mask prediction for the (face=1, other=2) pair."""
     mask1, mask2 = embed1["mask"], embed2["mask"]
     if same:
         target_mask, rot_mask = mask1, mask2
     else:
         rot_mask = _rotate_and_segment(zoo, embed2["W"], embed1["W"][:, :6], cfg=cfg,
-                                       dtype=dtype, generator=generator)
+                                       dtype=dtype, generator=generator, sp=sp)
         face_1 = shape_adaptor.get_face_code(zoo["shape_adaptor"], mask1)
         hair_2 = shape_adaptor.get_hair_code(zoo["shape_adaptor"], rot_mask)
         target_mask = shape_adaptor.get_new_shape(zoo["shape_adaptor"], face_1, hair_2)
@@ -67,10 +75,10 @@ def shape_module(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor]
 def align_images(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor], *,
                  same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
+                 generator: Optional[torch.Generator] = None, sp=None) -> Dict[str, Tensor]:
     """F-space alignment of (face, shape) -> {latent_F_align [B,32,32,512], HM_X}."""
     sm = shape_module(zoo, embed1, embed2, same=same, cfg=cfg, dtype=dtype,
-                      generator=generator)
+                      generator=generator, sp=sp)
     if same:
         return {"latent_F_align": embed1["F"], "HM_X": sm["HM_X"]}
 

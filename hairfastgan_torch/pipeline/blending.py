@@ -9,6 +9,11 @@ hairfastgan_tpu/pipeline/blending.py; reference models/Blending.py:35-81).
     (skipped when all three images are the same)
   * I_blend = G[4..8](S_blend, layer_in=F_align); PostProcessModel(I_1,
     downsample(I_blend)) -> S_final, F_final; I_final = G[5..8](S_final, F_final)
+
+With `sp` (parallel/spatial.SpatialPlan) both renders H-band their
+>= from_res pairs over its devices: I_blend is gathered (PostProcess reads
+all of it), the final render is finished per band and its bands are
+assembled on the lead device.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.models import encoders, stylegan2
 from hairfastgan_torch.ops.morphology import dilate_erode
+from hairfastgan_torch.parallel import mesh
+from hairfastgan_torch.parallel.spatial import sharded_synthesis
 from hairfastgan_torch.pipeline.embedding import to_res
 
 Tensor = torch.Tensor
@@ -30,7 +37,7 @@ def blend_images(zoo: Dict, align_shape: Dict[str, Tensor], align_color: Dict[st
                  all_same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 return_intermediate: bool = False):
+                 return_intermediate: bool = False, sp=None):
     """-> final image [B,H,W,3] in [0,1] (NHWC); with return_intermediate,
     (final, {I_blend (NHWC, [-1,1]), S_blend, S_final, F_final (NHWC)})."""
     i_1 = embed_face["image_norm_256"].to(dtype)
@@ -55,17 +62,29 @@ def blend_images(zoo: Dict, align_shape: Dict[str, Tensor], align_color: Dict[st
         s_blend = torch.cat([latent_s_1[:, :6], s_blend_6], dim=1)
 
     f_align = align_shape["latent_F_align"].to(dtype).permute(0, 3, 1, 2)
-    _, i_blend = stylegan2.synthesis_nchw(
-        zoo["generator"], s_blend, noise=stylegan2.make_noise(generator, cfg.stylegan, b, dev),
-        start_layer=4, end_layer=8, layer_in=f_align, cfg=cfg.stylegan, dtype=dtype)
+    gen = zoo["generator"]
+    if sp is not None:
+        i_blend = sharded_synthesis(sp, gen, s_blend, start_layer=4, end_layer=8,
+                                    layer_in=f_align, cfg=cfg.stylegan, dtype=dtype)
+    else:
+        _, i_blend = stylegan2.synthesis_nchw(
+            gen, s_blend, noise=stylegan2.make_noise(generator, cfg.stylegan, b, dev),
+            start_layer=4, end_layer=8, layer_in=f_align, cfg=cfg.stylegan, dtype=dtype)
     i_blend_256 = to_res(i_blend, 256).permute(0, 2, 3, 1)
 
     s_final, f_final = encoders.post_process_model(zoo["post_process"], i_1, i_blend_256)
-    _, i_final = stylegan2.synthesis_nchw(
-        zoo["generator"], s_final, noise=stylegan2.make_noise(generator, cfg.stylegan, b, dev),
-        start_layer=5, end_layer=8, layer_in=f_final.permute(0, 3, 1, 2),
-        cfg=cfg.stylegan, dtype=dtype)
-    final = ((i_final + 1.0) / 2.0).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    f_final_nchw = f_final.permute(0, 3, 1, 2)
+    if sp is not None:
+        bands = sharded_synthesis(sp, gen, s_final, start_layer=5, end_layer=8,
+                                  layer_in=f_final_nchw, cfg=cfg.stylegan, dtype=dtype,
+                                  gather=False)
+        final = mesh.gather([((x + 1.0) / 2.0).clamp(0.0, 1.0) for x in bands], dev, dim=2)
+    else:
+        _, i_final = stylegan2.synthesis_nchw(
+            gen, s_final, noise=stylegan2.make_noise(generator, cfg.stylegan, b, dev),
+            start_layer=5, end_layer=8, layer_in=f_final_nchw, cfg=cfg.stylegan, dtype=dtype)
+        final = ((i_final + 1.0) / 2.0).clamp(0.0, 1.0)
+    final = final.permute(0, 2, 3, 1)
     if return_intermediate:
         return final, {"I_blend": i_blend.permute(0, 2, 3, 1), "S_blend": s_blend,
                        "S_final": s_final, "F_final": f_final}

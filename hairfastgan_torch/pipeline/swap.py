@@ -53,7 +53,7 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
               case: str = "distinct", cfg: HairFastConfig = HairFastConfig(),
               dtype: torch.dtype = torch.float32,
               generator: Optional[torch.Generator] = None,
-              return_intermediate: bool = False):
+              return_intermediate: bool = False, sp=None):
     """One batched hair transfer: NHWC [B,H,W,3] (uint8 or [0,1] float) ->
     [B,H,W,3] in [0,1]. `generator` draws fresh noise (the reference's
     randomize_noise); None is deterministic zero noise, the parity mode.
@@ -61,9 +61,18 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
     return_intermediate=True also returns the per-stage artifacts that
     save_all dumps, under the JAX package's keys and layouts (W/S/F of
     face, shape and color, mask_*, latent_F_align, HM_X, I_blend, S_blend,
-    S_final, F_final)."""
+    S_final, F_final).
+
+    `sp` (parallel/spatial.SpatialPlan; parallel/spatial.make_sharded_swap
+    builds it) H-bands the >= from_res generator renders over its devices:
+    the multi-device latency path. The rest of the swap runs on the inputs'
+    device, where the result is assembled. Zero noise and no intermediates
+    only."""
     if case not in CASES:
         raise ValueError(f"case must be one of {CASES}, got {case!r}")
+    if sp is not None and (generator is not None or return_intermediate):
+        raise ValueError("spatially-sharded swap supports the deterministic "
+                         "zero-noise path without intermediates only")
     check_config(cfg)
     b = face.shape[0]
 
@@ -88,15 +97,15 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
             e_shape, e_color = split(emb, 1), e_face
 
     align_shape = align_images(zoo, e_face, e_shape, same=case in ("face_eq_shape", "same"),
-                               cfg=cfg, dtype=dtype, generator=generator)
+                               cfg=cfg, dtype=dtype, generator=generator, sp=sp)
     if case in ("shape_eq_color", "same"):
         align_color = align_shape
     else:
         align_color = shape_module(zoo, e_face, e_color, same=(case == "face_eq_color"),
-                                   cfg=cfg, dtype=dtype, generator=generator)
+                                   cfg=cfg, dtype=dtype, generator=generator, sp=sp)
     out = blend_images(zoo, align_shape, align_color, e_face, e_color,
                        all_same=(case == "same"), cfg=cfg, dtype=dtype, generator=generator,
-                       return_intermediate=return_intermediate)
+                       return_intermediate=return_intermediate, sp=sp)
     if not return_intermediate:
         return out
     final, blend_inter = out

@@ -3,17 +3,20 @@ scripts/train_blending.py; reference scripts/blending_train.py).
 
 Data: a directory of .npz rows written by gen_blending_data (the
 Blending_dataset layout, train/blending.py). Trains the blending encoder's
-ModulationModule stack with Adam(1e-4) + clip(5) on one device; validates
-with the held-out loss; keeps best/last train states
-(params/checkpoint.save_train_state, CLIP stripped) and a jsonl log.
+ModulationModule stack with Adam(1e-4) + clip(5) on a data mesh of the
+local devices (parallel/mesh.data_mesh_for_batch: the largest divisor of
+--batch_size that fits them); validates with the held-out loss over the
+same mesh; keeps best/last train states (params/checkpoint.save_train_state,
+CLIP stripped) and a jsonl log.
 
     python -m hairfastgan_torch.scripts.train_blending --data_dir blend_rows
     python -m hairfastgan_torch.scripts.train_blending --tiny --device cpu \
         --data_dir blend_rows --epochs 1 --batch_size 2
 
---device defaults to cuda and raises without a GPU. The JAX CLI's data mesh
-is the one device here. --fid_real_dir adds FID-CLIP of the validation
-renders against a real-face directory to each epoch's log (eval/fid.py).
+--device defaults to cuda and raises without a GPU; with --device cuda the
+mesh spans every visible GPU. --fid_real_dir adds FID-CLIP of the
+validation renders against a real-face directory to each epoch's log
+(eval/fid.py).
 """
 
 from __future__ import annotations
@@ -68,10 +71,11 @@ def main(argv=None):
 
     from hairfastgan_torch import zoo as Z
     from hairfastgan_torch.config import HairFastConfig
+    from hairfastgan_torch.parallel import mesh
     from hairfastgan_torch.params.checkpoint import save_train_state
     from hairfastgan_torch.train.blending import (blend_render, blending_loss,
                                                   make_blending_train_step)
-    from hairfastgan_torch.train.common import MetricLogger, check_finite_loss
+    from hairfastgan_torch.train.common import MetricLogger, check_finite_loss, shard_loss
 
     if args.tiny:
         frozen, params, cfg = Z.blending_train_tiny(0, device)
@@ -82,7 +86,12 @@ def main(argv=None):
         frozen = {"generator": zoo["generator"], "clip": zoo["blending"]["clip"]}
         params = {"mods": zoo["blending"]["mods"]}
 
-    step, tx = make_blending_train_step(frozen, cfg, lr=args.lr)
+    # the data mesh is capped at the batch size (shard_batch needs
+    # divisibility); it warns when devices are left idle
+    plan = mesh.data_mesh_for_batch(args.batch_size, mesh.local_devices(device))
+    frozen_reps = mesh.replicate(plan, frozen)
+    step, tx = make_blending_train_step(frozen_reps, cfg, lr=args.lr, plan=plan)
+    val_loss = shard_loss(plan, lambda p, fr, *b: blending_loss(p, fr, b, cfg))
     opt = tx.init(params)
 
     rows = load_rows(args.data_dir)
@@ -108,7 +117,7 @@ def main(argv=None):
                 check_finite_loss(aux["loss"], logger.step)
 
             with torch.no_grad():
-                vls = [float(blending_loss(params, frozen, b, cfg)[0])
+                vls = [float(val_loss(params, frozen_reps, *b)[0])
                        for b in batches(test_rows, BATCH_KEYS, args.batch_size, device,
                                         shuffle=False)]
             v = float(np.mean(vls)) if vls else float("nan")

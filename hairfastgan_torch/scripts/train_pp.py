@@ -17,8 +17,10 @@ best/last train states (the discriminator included).
     python -m hairfastgan_torch.scripts.train_pp --micro --device cpu --data_dir pp_rows \
         --epochs 1 --batch_size 2 --use_adv --iter_before 1 --d_reg_every 1
 
---device defaults to cuda and raises without a GPU. The JAX CLI's data
-mesh is the one device here.
+Every step, the discriminator's and R1 included, and the validation run on
+a data mesh of the local devices (parallel/mesh.data_mesh_for_batch: the
+largest divisor of --batch_size that fits them). --device defaults to cuda
+and raises without a GPU; with cuda the mesh spans every visible GPU.
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ def main(argv=None):
     from hairfastgan_torch import zoo as Z
     from hairfastgan_torch.config import HairFastConfig
     from hairfastgan_torch.ops.resample import resize
+    from hairfastgan_torch.parallel import mesh
     from hairfastgan_torch.params.checkpoint import restore_train_state, save_train_state
     from hairfastgan_torch.train.common import MetricLogger, check_finite_loss
     from hairfastgan_torch.train.pp import (make_pp_split_train_step, make_pp_train_steps,
@@ -130,13 +133,17 @@ def main(argv=None):
         # the frozen nets stay RESIDENT in bf16 (the in-loss cast would
         # otherwise hold both copies live)
         frozen = Z.cast_zoo(frozen, torch.bfloat16)
+    # the data mesh is capped at the batch size (shard_batch needs
+    # divisibility); it warns when devices are left idle
+    plan = mesh.data_mesh_for_batch(args.batch_size, mesh.local_devices(device))
+    frozen = mesh.replicate(plan, frozen)
     enc_step, disc_step, r1_step, tx, d_tx = make_pp_train_steps(
         frozen, cfg=cfg, lr=args.lr, use_adv=args.use_adv, remat=args.remat,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, plan=plan)
     if args.split_compile:
         enc_step, tx = make_pp_split_train_step(
             frozen, cfg=cfg, lr=args.lr, use_adv=args.use_adv, remat=args.remat,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, plan=plan)
     opt = tx.init(params)
 
     disc_params = d_opt = None
@@ -230,7 +237,7 @@ def main(argv=None):
             v_totals, v_terms, gen_f_all, grid_rows = [], {}, [], []
             with torch.no_grad():
                 for b in batches(val_rows, BATCH_KEYS, args.batch_size, device, shuffle=False):
-                    total, aux = pp_loss(params, frozen, b, alpha=1.0, cfg=cfg)
+                    total, aux = pp_loss(params, frozen, b, alpha=1.0, cfg=cfg, plan=plan)
                     v_totals.append(float(total))
                     for k, v in aux.items():
                         if v.ndim == 0:

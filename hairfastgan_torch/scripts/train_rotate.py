@@ -4,8 +4,10 @@ scripts/train_rotate.py; reference scripts/rotate_train.py).
 Alternates pose-pair batches (keypoint MSE + ArcFace identity) with
 same-person hair-pair batches (latent MSE), EMA-balanced like the
 reference's MovingAverageLoss (normalize=True in training, raw sums in
-validation, rotate_train.py:155-158,233-282). Per-epoch validation on a
-held-out split keeps best/last train states and optional render grids.
+validation, rotate_train.py:155-158,233-282), on a data mesh of the local
+devices (parallel/mesh.data_mesh_for_batch). Per-epoch validation on a
+held-out split, over the same mesh, keeps best/last train states and
+optional render grids.
 
     python -m hairfastgan_torch.scripts.train_rotate --pose_dir pose --hair_dir hair
     python -m hairfastgan_torch.scripts.train_rotate --tiny --no_keypoints --device cpu \
@@ -16,7 +18,8 @@ The keypoint extractor is STAR (models/star.py) from star_wflw.pth in
 the script refuses to run unless --no_keypoints is passed. The ArcFace
 IR-SE-50 backbone is drawn at random, as the JAX CLI draws it (neither
 package loads an identity checkpoint for this trainer yet). --device
-defaults to cuda and raises without a GPU.
+defaults to cuda and raises without a GPU; with cuda the mesh spans every
+visible GPU.
 
 Data rows (.npz): pose: I_from [1,256,256,3] [0,1], kp_to [1,76,2],
 W_from/W_to [1,n_latent,512]; hair: W_from/W_to only.
@@ -65,11 +68,12 @@ def main(argv=None):
     from hairfastgan_torch import zoo as Z
     from hairfastgan_torch.config import HairFastConfig
     from hairfastgan_torch.models import star
+    from hairfastgan_torch.parallel import mesh
     from hairfastgan_torch.params.bridge import map_tree
     from hairfastgan_torch.params.checkpoint import save_train_state
     from hairfastgan_torch.params.convert import load_torch_state_dict
     from hairfastgan_torch.train.common import (MetricLogger, MovingAverageLoss,
-                                                check_finite_loss)
+                                                check_finite_loss, shard_loss)
     from hairfastgan_torch.train.rotate import (make_rotate_train_steps, rotate_hair_loss,
                                                 rotate_pose_loss, rotate_render)
 
@@ -105,7 +109,14 @@ def main(argv=None):
             "place star_wflw.pth in --zoo_dir, or pass --no_keypoints to train on the "
             "identity+latent losses only.")
 
-    pose_step, hair_step, tx = make_rotate_train_steps(frozen, keypoint_fn, cfg, lr=args.lr)
+    # the data mesh is capped at the batch size (shard_batch needs
+    # divisibility); it warns when devices are left idle
+    plan = mesh.data_mesh_for_batch(args.batch_size, mesh.local_devices(device))
+    frozen_reps = mesh.replicate(plan, frozen)
+    pose_step, hair_step, tx = make_rotate_train_steps(frozen_reps, keypoint_fn, cfg,
+                                                       lr=args.lr, plan=plan)
+    val_pose = shard_loss(plan, lambda p, fr, *b: rotate_pose_loss(p, fr, b, keypoint_fn, cfg))
+    val_hair = shard_loss(plan, lambda p, *b: rotate_hair_loss(p, b))
     opt = tx.init(params)
 
     pose_rows = sorted(args.pose_dir.glob("*.npz"))
@@ -146,11 +157,10 @@ def main(argv=None):
             with torch.no_grad():
                 for b in batches(val_pose_rows, POSE_KEYS, args.batch_size, device,
                                  shuffle=False):
-                    vals.append(scalars(rotate_pose_loss(params, frozen, b, keypoint_fn,
-                                                         cfg)[1]))
+                    vals.append(scalars(val_pose(params, frozen_reps, *b)[1]))
                 for b in batches(val_hair_rows, HAIR_KEYS, args.batch_size, device,
                                  shuffle=False):
-                    vals.append({"mse_latents": float(rotate_hair_loss(params, b)[0])})
+                    vals.append({"mse_latents": float(val_hair(params, *b)[0])})
             agg = {}
             for d in vals:
                 for k, v in d.items():

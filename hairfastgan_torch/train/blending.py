@@ -69,12 +69,13 @@ def blending_loss(model_params, frozen: Dict, batch: Tuple[Tensor, ...],
 
 
 def make_blending_train_step(frozen: Dict, cfg: HairFastConfig = HairFastConfig(),
-                             lr: float = 1e-4):
+                             lr: float = 1e-4, plan=None):
     """(step, tx): step(params, opt, *batch) over {"mods": ...}; `frozen`
-    holds the generator and the CLIP tower."""
+    holds the generator and the CLIP tower; `plan` (a data mesh) shards
+    the batch (train/common.make_train_step)."""
     tx = adam_with_clip(lr)
 
     def loss_fn(params, frozen_arg, *batch):
         return blending_loss(params, frozen_arg, batch, cfg)
 
-    return make_train_step(loss_fn, tx, frozen=frozen), tx
+    return make_train_step(loss_fn, tx, frozen=frozen, plan=plan), tx

@@ -6,6 +6,11 @@ one GPU (scripts/*_train.py). Here parameters are the port's plain trees of
 tensors: the trained tree's leaves are what the optimizer steps, frozen
 trees are tensors with requires_grad=False handed to the loss at call time.
 A step is eager autograd: no custom backward exists anywhere on the path.
+On a data mesh (parallel/mesh.py) a step shards the batch, runs the loss on
+each shard against the device's replica of the parameters, and reduces the
+shards' losses into the global batch's before ONE backward: the replicas'
+gradients sum into the master parameters, and the clip and Adam run once on
+the lead device, as the gradient psum gives them in the JAX package.
 MovingAverageLoss mirrors rotate_train.py's per-loss EMA scaling.
 """
 
@@ -19,12 +24,17 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from hairfastgan_torch.parallel import mesh
+
 Tensor = torch.Tensor
 
 
 def tensor_leaves(tree) -> List[Tensor]:
     """Tensor leaves of a tree of dicts and lists, dict keys in sorted order
-    (the order jax flattens them in); Python values are skipped."""
+    (the order jax flattens them in); Python values are skipped; the
+    copies of a parallel.mesh.Replicas in mesh order."""
+    if isinstance(tree, mesh.Replicas):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in tensor_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -95,8 +105,37 @@ def apply_update(tx: AdamWithClip, opt: torch.optim.Optimizer) -> Tensor:
     return norm
 
 
+def shard_loss(plan: mesh.MeshPlan, loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]]):
+    """loss_fn(params, *args) -> (scalar, aux) of a batch => the same over
+    the global batch on the data mesh `plan`:
+
+        loss, aux = shard_loss(plan, loss_fn)(params, *args)
+
+    `params` is replicated on each distinct device (differentiably: the
+    backward pass sums the replicas' gradients into it). Tensor arguments
+    are the batch, split over the data devices; a Replicas argument gives
+    each shard its device's copy; other dicts and lists are replicated per
+    call; anything else (floats, tuples of floats) passes as it is. The
+    shards' losses and scalar aux values are summed with weights b_i / B on
+    the lead device (parallel.mesh.reduce_shards), which is the global
+    value for batch-mean losses; batched aux tensors are concatenated."""
+    def run(params, *args):
+        reps = mesh.replicate(plan, params)
+        shards = [mesh.shard_batch(plan, a) if isinstance(a, Tensor) else None for a in args]
+        args = [mesh.replicate(plan, a) if s is None and isinstance(a, (dict, list)) else a
+                for a, s in zip(args, shards)]
+        results = [loss_fn(mesh.on(reps, d), *(s[i] if s is not None else mesh.on(a, d)
+                                                  for a, s in zip(args, shards)))
+                   for i, d in enumerate(plan.data_devices)]
+        sizes = [x.shape[0] for x in next(s for s in shards if s is not None)]
+        return mesh.reduce_shards(plan, results, sizes)
+
+    return run
+
+
 def make_train_step(loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
-                    tx: AdamWithClip, remat: bool = False, frozen: Any = None):
+                    tx: AdamWithClip, remat: bool = False, frozen: Any = None,
+                    plan: Optional[mesh.MeshPlan] = None):
     """loss_fn(params, [frozen,] *batch) -> (scalar, aux) => an update step
 
         params, opt, aux = step(params, opt, *batch)
@@ -110,16 +149,23 @@ def make_train_step(loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
     positional argument; their leaves are set requires_grad=False, so no
     gradient is computed for them. remat=True runs the loss under
     torch.utils.checkpoint (activations recomputed on the backward pass;
-    same gradients). The JAX package's `donate` has no meaning here (the
-    step updates the parameters in place) and is not an argument.
+    same gradients). plan: a data mesh; the loss then runs per shard
+    through `shard_loss` (tensor arguments are the batch), with `frozen`
+    replicated once here. The JAX package's `donate` has no meaning here
+    (the step updates the parameters in place) and is not an argument.
     """
     if frozen is not None:
         freeze(frozen)
+        if plan is not None:
+            frozen = mesh.replicate(plan, frozen)
 
     def run(params, *args):
         if remat:
             return checkpoint(loss_fn, params, *args, use_reentrant=False)
         return loss_fn(params, *args)
+
+    if plan is not None:
+        run = shard_loss(plan, run)
 
     def step(params, opt: torch.optim.Optimizer, *batch):
         fargs = ((frozen,) if frozen is not None else ()) + batch

@@ -14,6 +14,13 @@ Default loss weights from pp_train.py's argparse. The batch, the renders in
 `aux` and the discriminator's images keep the JAX package's NHWC layout;
 inside, the maps are NCHW. Gradients come from autograd through the port's
 plain ops; the generator renders at zero noise.
+
+With a data mesh `plan` (parallel/mesh.py) every loss runs per shard against
+the device's replica of the trained parameters and the shards' losses are
+reduced on the lead device before one backward, except where samples meet:
+the discriminator's minibatch-stddev groups span the global batch
+(models/stylegan2_discriminator.minibatch_stddev), in the adversarial
+term, the discriminator step and R1 alike.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from hairfastgan_torch.losses.perceptual import lpips_scale
 from hairfastgan_torch.models import bisenet, encoders, stylegan2
 from hairfastgan_torch.models.stylegan2_discriminator import discriminator, discriminator_nchw
 from hairfastgan_torch.ops.resample import resize
+from hairfastgan_torch.parallel import mesh
 from hairfastgan_torch.params.bridge import map_tree
 from hairfastgan_torch.pipeline.embedding import to_res
 from hairfastgan_torch.train.common import adam_with_clip, apply_update, freeze, make_train_step
@@ -153,10 +161,62 @@ def _mixed(compute_dtype, params, frozen, batch):
             tuple(x.to(compute_dtype) for x in batch))
 
 
+def _total(terms: Dict[str, Tensor], renders: Dict[str, Tensor]):
+    """(sum of the terms in f32, aux: the terms and the detached renders)."""
+    terms = {k: v.float() for k, v in terms.items()}
+    return sum(terms.values()), dict(terms, **renders)
+
+
+def _run(plan, params, frozen, batch, terms_fn, disc_params, weights):
+    """(total, aux) of terms_fn(params, frozen, batch) -> (terms, gen_f or
+    None, renders), plus with `disc_params` the adversarial term of gen_f;
+    on one device, or over the global batch on the data mesh `plan`: the
+    terms per shard against the device's replica of `params` (`frozen` a
+    Replicas or one tree), the discriminator's stddev groups across the
+    shards, the shards' terms reduced on the lead device."""
+    if plan is None:
+        terms, gen_f, renders = terms_fn(params, frozen, batch)
+        if disc_params is not None:
+            terms["adv"] = _adv_term(disc_params, weights, gen_f)
+        return _total(terms, renders)
+    reps = mesh.replicate(plan, params)
+    shards = [mesh.shard_batch(plan, x) for x in batch]
+    parts = [terms_fn(mesh.on(reps, d), mesh.on(frozen, d), tuple(s[i] for s in shards))
+             for i, d in enumerate(plan.data_devices)]
+    if disc_params is not None:
+        dtype = parts[0][1].dtype
+        disc = mesh.replicate(plan, map_tree(disc_params, lambda _, t: t.detach().to(dtype)))
+        logits = discriminator_nchw(disc, [gen_f for _, gen_f, _ in parts], plan)
+        for (terms, _, _), lg in zip(parts, logits):
+            terms["adv"] = weights["adv"] * adv_g_loss(lg)
+    return mesh.reduce_shards(plan, [_total(t, r) for t, _, r in parts],
+                              [x.shape[0] for x in shards[0]])
+
+
+def _pp_terms(params, frozen, batch, weights, alpha, cfg, remat, compute_dtype):
+    """Every term of pp_loss but the adversarial one, the full-res F render
+    (in the graph) and the detached renders of its aux."""
+    params, frozen, batch = _mixed(compute_dtype, params, frozen, batch)
+    source, target, target_mask, ht_e = batch
+    f, f_w, gen_w, gen_f = _renders(params, frozen, source, target, alpha,
+                                    _make_synth(remat, cfg))
+    gen_w_256, gen_f_256 = to_res(gen_w, 256), to_res(gen_f, 256)
+    src, tgt, tm, ht = (_nchw(x) for x in batch)
+
+    terms = {"dice": _dice_term(frozen, weights, tgt, gen_f),
+             "id": _id_term(frozen, weights, src, tm, gen_w_256, gen_f_256),
+             "feat_rec": weights["feat_rec"] * feat_recon_loss(f_w.detach(), f)}
+    terms.update(_lpips_terms(frozen, weights, src, tgt, tm, ht, gen_w_256, gen_f_256))
+    # the full-res F render is the discriminator step's fake (the reference
+    # trains D on gen_im_F.detach(), not a 256 crop, pp_train.py:162)
+    return terms, gen_f, dict(gen_f_256=_nhwc(gen_f_256.detach()),
+                              gen_w_256=_nhwc(gen_w_256.detach()), gen_f=_nhwc(gen_f.detach()))
+
+
 def pp_loss(params, frozen: Dict, batch: Tuple[Tensor, ...],
             weights: Dict[str, float] = DEFAULT_WEIGHTS, alpha: float = 1.0, disc_params=None,
             cfg: HairFastConfig = HairFastConfig(), remat: bool = False,
-            compute_dtype=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+            compute_dtype=None, plan=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """batch: (source norm256, target norm256, target_mask [B,256,256,1],
     HT_E [B,256,256,1]), NHWC; `alpha` anneals the F injection
     (pp_train.py:133-137). remat: per-render rematerialization (see
@@ -168,34 +228,30 @@ def pp_loss(params, frozen: Dict, batch: Tuple[Tensor, ...],
     cast); norm statistics still fold in f32 (ops/basic.py) and the per-term
     scalars are cast back to f32 before the sum.
 
+    plan: a data mesh; the loss is then the global batch's (`_run`), and
+    `frozen` may be its Replicas.
+
     aux: every term, plus the detached renders gen_f (full res), gen_f_256
     and gen_w_256, NHWC [-1,1].
     """
-    params, frozen, batch = _mixed(compute_dtype, params, frozen, batch)
-    source, target, target_mask, ht_e = batch
-    f, f_w, gen_w, gen_f = _renders(params, frozen, source, target, alpha,
-                                    _make_synth(remat, cfg))
-    gen_w_256, gen_f_256 = to_res(gen_w, 256), to_res(gen_f, 256)
-    src, tgt, tm, ht = (_nchw(x) for x in batch)
+    def terms_fn(p, fr, b):
+        return _pp_terms(p, fr, b, weights, alpha, cfg, remat, compute_dtype)
 
-    losses = {"dice": _dice_term(frozen, weights, tgt, gen_f),
-              "id": _id_term(frozen, weights, src, tm, gen_w_256, gen_f_256),
-              "feat_rec": weights["feat_rec"] * feat_recon_loss(f_w.detach(), f)}
-    losses.update(_lpips_terms(frozen, weights, src, tgt, tm, ht, gen_w_256, gen_f_256))
-    if disc_params is not None:
-        losses["adv"] = _adv_term(disc_params, weights, gen_f)
-    losses = {k: v.float() for k, v in losses.items()}
-    total = sum(losses.values())
-    # the full-res F render is the discriminator step's fake (the reference
-    # trains D on gen_im_F.detach(), not a 256 crop, pp_train.py:162)
-    return total, dict(losses, gen_f_256=_nhwc(gen_f_256.detach()),
-                       gen_w_256=_nhwc(gen_w_256.detach()), gen_f=_nhwc(gen_f.detach()))
+    return _run(plan, params, frozen, tuple(batch), terms_fn, disc_params, weights)
 
 
-def pp_disc_loss(disc_params, real: Tensor, fake: Tensor) -> Tuple[Tensor, Dict]:
-    """real, fake: NHWC [-1,1] at the generator's resolution."""
-    loss = adv_d_loss(discriminator(disc_params, real), discriminator(disc_params, fake))
-    return loss, {"disc_adv": loss}
+def pp_disc_loss(disc_params, real: Tensor, fake: Tensor, plan=None) -> Tuple[Tensor, Dict]:
+    """real, fake: NHWC [-1,1] at the generator's resolution. With a data
+    mesh `plan` both are sharded and the minibatch-stddev groups of each
+    span its global batch."""
+    if plan is None:
+        loss = adv_d_loss(discriminator(disc_params, real), discriminator(disc_params, fake))
+        return loss, {"disc_adv": loss}
+    reps = mesh.replicate(plan, disc_params)
+    r, f = (discriminator(reps, mesh.shard_batch(plan, x), plan) for x in (real, fake))
+    losses = [adv_d_loss(a, b) for a, b in zip(r, f)]
+    return mesh.reduce_shards(plan, [(v, {"disc_adv": v}) for v in losses],
+                              [x.shape[0] for x in r])
 
 
 def _split_args(use_adv: bool, batch_and_disc):
@@ -210,7 +266,8 @@ def _split_args(use_adv: bool, batch_and_disc):
 
 def make_pp_split_train_step(frozen: Dict, weights=DEFAULT_WEIGHTS,
                              cfg: HairFastConfig = HairFastConfig(), lr: float = 1e-4,
-                             use_adv: bool = False, remat: bool = False, compute_dtype=None):
+                             use_adv: bool = False, remat: bool = False, compute_dtype=None,
+                             plan=None):
     """Segmented enc_step: the SAME update as `make_pp_train_steps`' fused
     step. The loss is a sum of terms, so grad(total) = sum of the grads of
     its groups: each segment [dice | id+feat_rec | lpips(+inpaint) | adv?]
@@ -219,50 +276,55 @@ def make_pp_split_train_step(frozen: Dict, weights=DEFAULT_WEIGHTS,
     and one Adam step follow. What it buys in PyTorch is a lower peak of
     device memory (one segment's graph lives at a time) for about twice the
     forward work. (The JAX package split its step for a compile proxy's
-    request-size cap, which has no counterpart here.)
+    request-size cap, which has no counterpart here.) With a data mesh
+    `plan` each segment runs over the global batch (`_run`: one reduction
+    per segment).
 
     Returns (step, tx) with the fused step's call and aux contract.
     """
     tx = adam_with_clip(lr)
     freeze(frozen)
+    frozen_arg = mesh.replicate(plan, frozen) if plan is not None else frozen
     synth = _make_synth(remat, cfg)
 
-    def seg_dice(params, fr, batch, alpha, disc_params):
+    # each segment: (params, frozen, batch, alpha) -> (terms, gen_f or None,
+    # renders); the cast to compute_dtype is redone per segment, as each
+    # segment's backward frees its graph, the cast's included
+    def seg_dice(params, fr, batch, alpha):
+        params, fr, batch = _mixed(compute_dtype, params, fr, batch)
         _, _, _, gen_f = _renders(params, fr, batch[0], batch[1], alpha, synth, need_w=False)
-        v = _dice_term(fr, weights, _nchw(batch[1]), gen_f).float()
-        return v, {"dice": v, "gen_f": _nhwc(gen_f.detach())}
+        return ({"dice": _dice_term(fr, weights, _nchw(batch[1]), gen_f)}, None,
+                {"gen_f": _nhwc(gen_f.detach())})
 
-    def seg_id_feat(params, fr, batch, alpha, disc_params):
+    def seg_id_feat(params, fr, batch, alpha):
+        params, fr, batch = _mixed(compute_dtype, params, fr, batch)
         f, f_w, gen_w, gen_f = _renders(params, fr, batch[0], batch[1], alpha, synth)
         gen_w_256, gen_f_256 = to_res(gen_w, 256), to_res(gen_f, 256)
-        v_id = _id_term(fr, weights, _nchw(batch[0]), _nchw(batch[2]), gen_w_256,
-                        gen_f_256).float()
-        v_fr = (weights["feat_rec"] * feat_recon_loss(f_w.detach(), f)).float()
-        return v_id + v_fr, {"id": v_id, "feat_rec": v_fr,
-                             "gen_w_256": _nhwc(gen_w_256.detach()),
-                             "gen_f_256": _nhwc(gen_f_256.detach())}
+        return ({"id": _id_term(fr, weights, _nchw(batch[0]), _nchw(batch[2]), gen_w_256,
+                                gen_f_256),
+                 "feat_rec": weights["feat_rec"] * feat_recon_loss(f_w.detach(), f)}, None,
+                {"gen_w_256": _nhwc(gen_w_256.detach()), "gen_f_256": _nhwc(gen_f_256.detach())})
 
-    def seg_lpips(params, fr, batch, alpha, disc_params):
+    def seg_lpips(params, fr, batch, alpha):
+        params, fr, batch = _mixed(compute_dtype, params, fr, batch)
         _, _, gen_w, gen_f = _renders(params, fr, batch[0], batch[1], alpha, synth)
-        out = _lpips_terms(fr, weights, *(_nchw(x) for x in batch), to_res(gen_w, 256),
-                           to_res(gen_f, 256))
-        out = {k: v.float() for k, v in out.items()}
-        return sum(out.values()), out
+        return (_lpips_terms(fr, weights, *(_nchw(x) for x in batch), to_res(gen_w, 256),
+                             to_res(gen_f, 256)), None, {})
 
-    def seg_adv(params, fr, batch, alpha, disc_params):
+    def seg_adv(params, fr, batch, alpha):  # _run adds the adversarial term of gen_f
+        params, fr, batch = _mixed(compute_dtype, params, fr, batch)
         _, _, _, gen_f = _renders(params, fr, batch[0], batch[1], alpha, synth, need_w=False)
-        v = _adv_term(disc_params, weights, gen_f).float()
-        return v, {"adv": v}
+        return {}, gen_f, {}
 
     def step(params, opt: torch.optim.Optimizer, *batch_and_disc):
         batch, disc_params, alpha = _split_args(use_adv, batch_and_disc)
-        segs = [seg_dice, seg_id_feat, seg_lpips] + ([seg_adv] if disc_params is not None else [])
+        segs = [(seg_dice, None), (seg_id_feat, None), (seg_lpips, None)]
+        if disc_params is not None:
+            segs.append((seg_adv, disc_params))
         loss, aux = 0.0, {}
-        for seg in segs:
-            # the cast to compute_dtype is redone per segment: each segment's
-            # backward frees its graph, the cast's included
-            p, fr, b = _mixed(compute_dtype, params, frozen, batch)
-            v, a = seg(p, fr, b, alpha, disc_params)
+        for seg, disc in segs:
+            v, a = _run(plan, params, frozen_arg, batch,
+                        lambda p, fr, b, seg=seg: seg(p, fr, b, alpha), disc, weights)
             v.backward()
             loss = loss + v.detach()
             aux.update({k: t.detach() for k, t in a.items()})
@@ -274,7 +336,8 @@ def make_pp_split_train_step(frozen: Dict, weights=DEFAULT_WEIGHTS,
 
 def make_pp_train_steps(frozen: Dict, weights=DEFAULT_WEIGHTS,
                         cfg: HairFastConfig = HairFastConfig(), lr: float = 1e-4,
-                        use_adv: bool = False, remat: bool = False, compute_dtype=None):
+                        use_adv: bool = False, remat: bool = False, compute_dtype=None,
+                        plan=None):
     """(enc_step, disc_step, r1_step, tx, d_tx):
 
         params, opt, aux = enc_step(params, opt, *batch, [disc,] alpha)
@@ -285,22 +348,33 @@ def make_pp_train_steps(frozen: Dict, weights=DEFAULT_WEIGHTS,
     use_adv it takes the discriminator's params (None during the warm-up
     steps). r1_step evaluates the R1 penalty for the log, as the JAX
     package does; no gradient of it reaches the discriminator (ROADMAP §3).
-    The JAX package's `donate` has no counterpart (steps update in place).
+    With a data mesh `plan` each runs over the global batch, sharded (the
+    module docstring). The JAX package's `donate` has no counterpart
+    (steps update in place).
     """
     tx = adam_with_clip(lr)
+    freeze(frozen)
+    frozen_arg = mesh.replicate(plan, frozen) if plan is not None else frozen
 
     def loss_fn(params, frozen_arg, *batch_and_disc):
         batch, disc_params, alpha = _split_args(use_adv, batch_and_disc)
         return pp_loss(params, frozen_arg, batch, weights, alpha, disc_params, cfg, remat=remat,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype, plan=plan)
 
-    enc_step = make_train_step(loss_fn, tx, frozen=frozen)
+    enc_step = make_train_step(loss_fn, tx, frozen=frozen_arg)
     disc_step = d_tx = None
     if use_adv:
         d_tx = adam_with_clip(lr)
-        disc_step = make_train_step(pp_disc_loss, d_tx)
+        disc_step = make_train_step(lambda d, real, fake: pp_disc_loss(d, real, fake, plan), d_tx)
+
+    def disc_fn(disc_params, real: Tensor) -> Tensor:
+        if plan is None:
+            return discriminator(disc_params, real)
+        logits = discriminator(mesh.replicate(plan, disc_params), mesh.shard_batch(plan, real),
+                               plan)
+        return mesh.gather(logits, plan.lead)
 
     def r1_step(disc_params, real: Tensor) -> Tensor:
-        return r1_penalty(discriminator, disc_params, real).detach()
+        return r1_penalty(disc_fn, disc_params, real).detach()
 
     return enc_step, disc_step, r1_step, tx, d_tx

@@ -89,15 +89,18 @@ def rotate_hair_loss(params, batch: Tuple[Tensor, Tensor],
 
 
 def make_rotate_train_steps(frozen: Dict, keypoint_fn,
-                            cfg: HairFastConfig = HairFastConfig(), lr: float = 1e-4):
+                            cfg: HairFastConfig = HairFastConfig(), lr: float = 1e-4,
+                            plan=None):
     """(pose_step, hair_step, tx); both steps share one optimizer
     (`tx.init(params)`) and take the MovingAverageLoss multipliers as their
     last batch argument: pose(params, opt, I_from, kp_to, W_from, W_to, m),
     hair(params, opt, W_from, W_to, m). `frozen` holds the generator, the
-    ArcFace backbone and whatever keypoint_fn reads (e.g. "star")."""
+    ArcFace backbone and whatever keypoint_fn reads (e.g. "star"); `plan`
+    (a data mesh) shards the batch (train/common.make_train_step)."""
     tx = adam_with_clip(lr)
     pose = make_train_step(
         lambda p, fr, i, kp, wf, wt, m: rotate_pose_loss(
-            p, fr, (i, kp, wf, wt), keypoint_fn, cfg, mults=m), tx, frozen=frozen)
-    hair = make_train_step(lambda p, wf, wt, m: rotate_hair_loss(p, (wf, wt), mults=m), tx)
+            p, fr, (i, kp, wf, wt), keypoint_fn, cfg, mults=m), tx, frozen=frozen, plan=plan)
+    hair = make_train_step(lambda p, wf, wt, m: rotate_hair_loss(p, (wf, wt), mults=m), tx,
+                           plan=plan)
     return pose, hair, tx

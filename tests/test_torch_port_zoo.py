@@ -166,6 +166,7 @@ import hairfastgan_torch.pspace, hairfastgan_torch.models.inception
 import hairfastgan_torch.scripts.align_faces, hairfastgan_torch.scripts.parity_harness
 import hairfastgan_torch.scripts.upload_res_agreement
 import hairfastgan_torch.train.datagen, hairfastgan_torch.losses
+import hairfastgan_torch.parallel.mesh, hairfastgan_torch.parallel.spatial
 from hairfastgan_torch.train.blending import make_blending_train_step
 from hairfastgan_torch.train.pp import make_pp_train_steps
 from hairfastgan_torch.zoo import (blending_train_tiny, init_discriminator, init_micro_zoo,
@@ -217,4 +218,4 @@ def test_port_runs_with_jax_blocked():
 def test_import_walk_covers_training():
     """The import check above walks the training modules and CLIs too."""
     walked = {str(p.relative_to(PORT)).split("/")[0] for p in PORT.rglob("*.py")}
-    assert {"train", "losses", "scripts", "eval", "params"} <= walked
+    assert {"train", "losses", "scripts", "eval", "params", "parallel"} <= walked
