@@ -65,6 +65,14 @@ Phases (any failure exits nonzero and prints no result line):
      and peak memory beside the unbanded swap's); a data-parallel blending
      step at 1024^2 and the micro discriminator step in float64 against one
      device, with the stddev groups over the global batch
+ 16. fastpaths: the opt-ins at full width, each against the default path
+     and timed beside it in turns: paired shape modules (f32 zero-noise
+     shape modules and swap vs the sequential ones; bf16 p50, device events,
+     idle share, peak memory), zoo.pack_zoo (f32 swap vs unpacked; bf16 swap
+     and e4e_encode B=3 / fs_encode B=2 / sean_decode B=2 ms and events),
+     modulated_conv2d(fuse_blur=True) for every up StyledConv 8^2 -> 1024^2
+     (ms, device us, f32 difference), rot_render_pairs=6 / rot_seg_size=512
+     (bf16 p50), and scripts/fastpath_agreement --n 16 on the card
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -2154,6 +2162,7 @@ def phase_parallel(hf, zoo32, device, card: str, cfg=None) -> dict:
     from hairfastgan_torch.params.bridge import map_tree
     from hairfastgan_torch.parallel import mesh, spatial
     from hairfastgan_torch.pipeline.swap import hair_fast
+    from hairfastgan_torch.scripts import fastpath_agreement
     from hairfastgan_torch.train import blending as TB
     from hairfastgan_torch.train import datagen as Dg
     from hairfastgan_torch.train import pp as P
@@ -2226,11 +2235,11 @@ def phase_parallel(hf, zoo32, device, card: str, cfg=None) -> dict:
 
         # 2. the banded swap, f32, TF32 off, with the generator drawn by its
         # real init's law (weights N(0, 1) under the equalized-lr scale,
-        # modulation biases around 1): with the random fill's N(0, 0.05)
+        # modulation biases 1): with the random fill's N(0, 0.05)
         # the renders carry almost no signal (halo=1 moved the micro
         # image by 2e-4), and a wrong band would hide under the tolerance
-        zoo32 = dict(zoo32, generator=map_tree(zoo32["generator"], lambda k, t: (
-            t * 20.0 if k == "w" else t + 1.0 if k == "b" else t.clone())))
+        zoo32 = dict(zoo32, generator=fastpath_agreement.scaled_generator(cfg32.stylegan, 0,
+                                                                          device))
         t1 = [torch.from_numpy(a[:1]).to(device) for a in trip]
         swaps = {n: spatial.make_sharded_swap(mesh.make_mesh(devices=devices(n)), cfg=cfg32,
                                               from_res=from_res, halo=8) for n in (2, 4)}
@@ -2400,6 +2409,281 @@ def phase_parallel(hf, zoo32, device, card: str, cfg=None) -> dict:
     return out
 
 
+def _profiled(fn, n: int = 3):
+    """(device events, device busy ms) per call of fn over n calls
+    (torch.profiler, as phase 6 counts them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ev) / n, sum(e.device_time for e in ev) / n / 1e3
+
+
+def _swaps_in_turns(variants: dict, imgs, device, n: int) -> dict:
+    """Each HairFast of `variants` swaps `imgs` (bf16, B=1) n times, the
+    variants in turns (order reversed every other round); per variant: p50,
+    min and max ms by CUDA events, device events and busy ms per swap
+    (torch.profiler over 3 more), the idle share of the p50, and the peak
+    memory of one more swap above the resident."""
+    import torch
+
+    names = list(variants)
+    for name in names:  # warm-up
+        variants[name].swap_tensor(*imgs, seed=3407)
+    torch.cuda.synchronize()
+    ms = {k: [] for k in names}
+    for i in range(n):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            variants[name].swap_tensor(*imgs, seed=3407 + i)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    out = {}
+    for name in names:
+        p50 = statistics.median(ms[name])
+        hf = variants[name]
+        events, busy = _profiled(lambda: hf.swap_tensor(*imgs, seed=3407))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        hf.swap_tensor(*imgs, seed=3407)
+        torch.cuda.synchronize()
+        out[name] = {"p50": p50, "min": min(ms[name]), "max": max(ms[name]), "events": events,
+                     "busy_ms": busy, "idle": 1 - busy / p50,
+                     "peak_gib": (torch.cuda.max_memory_allocated(device) - resident) / 2 ** 30}
+    return out
+
+
+def _log_turns(label: str, rows: dict, card: str) -> None:
+    for name, r in rows.items():
+        log(f"[fastpaths] {label} {name}: bf16 B=1 swap p50 {r['p50']:.2f} ms (min "
+            f"{r['min']:.2f} max {r['max']:.2f}, CUDA events, in turns); {r['events']:.0f} "
+            f"device events, {r['busy_ms']:.2f} ms busy per swap, idle share {r['idle']:.3f}, "
+            f"peak {r['peak_gib']:.3f} GiB above resident  [{card}]")
+
+
+def _scaled_shape_adaptor(seed: int, device):
+    """The full-width shape adaptor with the JAX package's init law, from a
+    numpy seed: conv weights 0.02 * N(0,1), linear weights N(0,1) /
+    sqrt(fan-in), layer-norm gammas U(0,1), betas and biases 0 (drawn in
+    JAX layout and the tree's key order)."""
+    import torch
+
+    from hairfastgan_torch.models import shape_adaptor
+    from hairfastgan_torch.params.bridge import map_tree, to_port
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(key, t):
+        shape = tuple(t.shape)
+        if key == "w":  # conv [kh,kw,I,O] or linear [in,out]
+            scale = 0.02 if len(shape) == 4 else 1.0 / np.sqrt(shape[0])
+            a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        elif key == "gamma":
+            a = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+        else:
+            a = np.zeros(shape, np.float32)
+        return to_port(key, torch.from_numpy(a)).to(device)
+
+    return map_tree(shape_adaptor.init_shape_adaptor(), leaf)
+
+
+def phase_fastpaths(hf, zoo32, imgs, device, card: str) -> dict:
+    """The opt-in fast paths at full width on phase 4's zoos, each held
+    against the default path and timed beside it in turns: paired shape
+    modules (f32 zero-noise shape modules and swap against the sequential
+    ones; bf16 p50, events, idle share, peak memory), the packed zoo (f32
+    swap against the unpacked; bf16 swap and e4e_encode / fs_encode /
+    sean_decode at the swap's shapes), the fused up-blur (every up
+    StyledConv, 8^2 to 1024^2: ms, device us, f32 difference) and the
+    rotate render's two cuts (bf16 p50), then scripts/fastpath_agreement
+    --n 16 on the card."""
+    import torch
+
+    from hairfastgan_torch.api import HairFast
+    from hairfastgan_torch.models import e4e, iresnet, sean
+    from hairfastgan_torch.ops.modconv import modulated_conv2d
+    from hairfastgan_torch.pipeline import alignment as A
+    from hairfastgan_torch.pipeline import embedding as E
+    from hairfastgan_torch.pipeline.swap import hair_fast
+    from hairfastgan_torch.scripts import fastpath_agreement
+    from hairfastgan_torch.scripts.upload_res_agreement import BISENET_SEED, scaled_bisenet
+    from hairfastgan_torch.zoo import pack_zoo
+
+    out = {}
+    cfg = hf.cfg
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    trip = [torch.from_numpy(im)[None].to(device) for im in imgs]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # the generator, BiSeNet and the shape adaptor by their init laws: with
+    # the flat 0.05 fill the renders parse to no hair and the adaptor's
+    # target has none, and no label check can use an all-zero HM_X
+    zoo32 = dict(zoo32, generator=fastpath_agreement.scaled_generator(cfg.stylegan, 0, device),
+                 bisenet=scaled_bisenet(BISENET_SEED, device),
+                 shape_adaptor=_scaled_shape_adaptor(0, device))
+    try:
+        with torch.inference_mode():
+            # 1. paired shape modules against the sequential ones, f32, zero noise
+            emb = E.embed_images(zoo32, torch.cat(trip), mix=True, cfg=cfg32,
+                                 dtype=torch.float32)
+            face, shape, color = ({k: v[j:j + 1] for k, v in emb.items()} for j in range(3))
+            pair = counted("shape_module_pair", lambda: A.shape_module_pair(
+                zoo32, face, shape, color, cfg=cfg32, dtype=torch.float32), at_least=0)
+            seq = [A.shape_module(zoo32, face, e2, cfg=cfg32, dtype=torch.float32)
+                   for e2 in (shape, color)]
+            agreement = {}
+            for which, got, ref in zip(("shape", "color"), pair, seq):
+                for k in ("hair_mask1", "hair_mask2"):
+                    if not torch.equal(got[k], ref[k]):
+                        raise AssertionError(f"paired {which} {k} differs from the sequential")
+                for k in ("target_mask", "rot_mask", "HM_X"):
+                    agreement[f"{which}.{k}"] = float((got[k] == ref[k]).float().mean())
+            bad = {k: v for k, v in agreement.items() if v < 0.999}
+            hair = [float(sm["HM_X"].mean()) for sm in (*pair, *seq)]
+            n_labels = len(torch.unique(pair[0]["rot_mask"]))
+            log(f"[fastpaths] paired shape modules vs sequential (f32, TF32 off, zero noise; "
+                f"generator, BiSeNet and shape adaptor by their init laws): hair masks equal; "
+                f"label agreement {agreement}; {n_labels} classes in the rotated parse; target "
+                f"hair share (paired shape, color; sequential shape, color) "
+                f"{', '.join(f'{h:.4f}' for h in hair)}")
+            if bad:
+                raise AssertionError(f"paired shape modules agree below 99.9%: {bad}")
+            if not all(0.0 < h < 1.0 for h in hair):  # an all-or-no-hair target agrees trivially
+                raise AssertionError(f"trivial target masks, hair shares {hair}")
+            cfg32p = dataclasses.replace(cfg32, pair_shape_modules=True)
+            seq_img = hair_fast(zoo32, *trip, cfg=cfg32, dtype=torch.float32)
+            pair_img = counted("swap_paired_f32", lambda: hair_fast(
+                zoo32, *trip, cfg=cfg32p, dtype=torch.float32), at_least=2)
+            pair_err = float((pair_img - seq_img).abs().max())
+            log(f"[fastpaths] paired swap vs sequential, f32 zero noise: max |diff| "
+                f"{pair_err:.3e} (limit 1e-3), {LAUNCHES['swap_paired_f32']} launches")
+            if pair_err > 1e-3:
+                raise AssertionError(f"paired swap off the sequential by {pair_err}")
+            out["paired_f32"] = (agreement, pair_err)
+
+            # 2. the packed zoo against the unpacked, f32
+            packed32 = pack_zoo(zoo32)
+            pk_img = counted("swap_packed_f32", lambda: hair_fast(
+                packed32, *trip, cfg=cfg32, dtype=torch.float32), at_least=2)
+            d = (pk_img - seq_img).abs()
+            pk_err = (float(d.max()), float(d.mean()))
+            log(f"[fastpaths] packed-zoo swap vs unpacked, f32: max |diff| {pk_err[0]:.3e} "
+                f"(limit 5e-3), mean {pk_err[1]:.3e} (limit 2e-4)")
+            if pk_err[0] > 5e-3 or pk_err[1] > 2e-4:
+                raise AssertionError(f"packed-zoo swap off the unpacked: {pk_err}")
+            out["packed_f32"] = pk_err
+            del packed32, emb, pair, seq, seq_img, pair_img, pk_img
+            torch.cuda.empty_cache()
+
+            # 3. the fused up-blur: every up StyledConv of the generator
+            rng = np.random.default_rng(17)
+            blur_rows = []
+            for pair_i in range(1, cfg.stylegan.log_size - 1):
+                p16 = hf.zoo["generator"]["convs"][2 * pair_i - 2]["conv"]
+                p32 = zoo32["generator"]["convs"][2 * pair_i - 2]["conv"]
+                cin, res = p16["w"].shape[1], 4 * 2 ** (pair_i - 1)
+                x = torch.from_numpy(rng.standard_normal((1, cin, res, res), dtype=np.float32)
+                                     ).to(device)
+                st = torch.from_numpy(rng.standard_normal((1, 512), dtype=np.float32)).to(device)
+                ref = modulated_conv2d(p32, x, st, up=True)
+                err = float((modulated_conv2d(p32, x, st, up=True, fuse_blur=True)
+                             - ref).abs().max())
+                scale = float(ref.abs().max())
+                x16, s16 = x.bfloat16(), st.bfloat16()
+                two = lambda: modulated_conv2d(p16, x16, s16, up=True)  # noqa: E731
+                fused = lambda: modulated_conv2d(p16, x16, s16, up=True, fuse_blur=True)  # noqa: E731
+                for f in (two, fused):
+                    cuda_ms(f, 5)
+                n = 50 if res <= 128 else 20
+                t1, f1, f2, t2 = (cuda_ms(f, n) for f in (two, fused, fused, two))
+                du_two, du_fused = device_us(two, 10), device_us(fused, 10)
+                blur_rows.append((res, 2 * res, cin, (t1 + t2) / 2, (f1 + f2) / 2,
+                                  du_two, du_fused, err))
+                log(f"[fastpaths] up StyledConv {res}^2 -> {2 * res}^2, {cin} ch, bf16 B=1: "
+                    f"two-pass {(t1 + t2) / 2:.4f} ms, fused {(f1 + f2) / 2:.4f} ms per call "
+                    f"(order two,fused,fused,two: {t1:.4f} {f1:.4f} {f2:.4f} {t2:.4f}); device "
+                    f"only two-pass {du_two:.1f} us, fused {du_fused:.1f} us; f32 max |diff| "
+                    f"{err:.3e} of max |y| {scale:.3e}  [{card}]")
+                if not err <= 1e-4 * scale:  # the CPU tests' rtol
+                    raise AssertionError(f"fused up-blur at {res}^2 off the two-pass by {err}")
+            out["fuse_blur"] = blur_rows
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # bf16 swaps in turns: default, paired, packed
+    packed16 = pack_zoo(hf.zoo)
+    hf_pair = HairFast(dataclasses.replace(cfg, pair_shape_modules=True), zoo=hf.zoo,
+                       device=device)
+    hf_pack = HairFast(cfg, zoo=packed16, device=device)
+    for name, h in (("swap_paired", hf_pair), ("swap_packed", hf_pack)):
+        counted(name, lambda: h.swap_tensor(*imgs, seed=3407), at_least=2)
+        if LAUNCHES[name] != 2:
+            raise AssertionError(f"{name}: {LAUNCHES[name]} kernel launches, expected 2")
+    rows = _swaps_in_turns({"default": hf, "paired": hf_pair, "packed": hf_pack}, imgs,
+                           device, n=10)
+    _log_turns("swaps", rows, card)
+    out["swaps"] = rows
+
+    # the packed modules at the swap's shapes: e4e B=3, fs_encode B=2, sean_decode B=2
+    dt = hf.dtype
+    mods = {}
+    with torch.inference_mode():
+        x3 = torch.from_numpy(rng.uniform(-1, 1, (3, 256, 256, 3)).astype(np.float32)).to(
+            device, dt)
+        codes = torch.from_numpy(rng.standard_normal((2, 19, 512)).astype(np.float32) * 0.5
+                                 ).to(device, dt)
+        labels = torch.from_numpy(np.repeat(np.repeat(rng.integers(0, 19, (2, 16, 16)), 16, 1),
+                                            16, 2).astype(np.int32)).to(device)
+        calls = {"e4e_encode B=3": (lambda z: e4e.e4e_encode(z["e4e"], x3)),
+                 "fs_encode B=2": (lambda z: iresnet.fs_encode(z["fse"], x3[:2])),
+                 "sean_decode B=2": (lambda z: sean.sean_decode(z["sean"], codes, labels))}
+        for name, call in calls.items():
+            unpacked, packed = (lambda: call(hf.zoo)), (lambda: call(packed16))
+            for f in (unpacked, packed):
+                cuda_ms(f, 3)
+            u1, p1, p2, u2 = (cuda_ms(f, 10) for f in (unpacked, packed, packed, unpacked))
+            ev_u, busy_u = _profiled(unpacked)
+            ev_p, busy_p = _profiled(packed)
+            mods[name] = {"unpacked_ms": (u1 + u2) / 2, "packed_ms": (p1 + p2) / 2,
+                          "unpacked_events": ev_u, "packed_events": ev_p,
+                          "unpacked_busy_ms": busy_u, "packed_busy_ms": busy_p}
+            log(f"[fastpaths] {name} bf16: unpacked {(u1 + u2) / 2:.3f} ms, {ev_u:.0f} events "
+                f"({busy_u:.3f} ms busy); packed {(p1 + p2) / 2:.3f} ms, {ev_p:.0f} events "
+                f"({busy_p:.3f} ms busy) per call (order u,p,p,u: {u1:.3f} {p1:.3f} {p2:.3f} "
+                f"{u2:.3f})  [{card}]")
+    out["modules"] = mods
+    del hf_pack, packed16
+    torch.cuda.empty_cache()
+
+    # 4. the rotate render's cuts: bf16 p50 in turns, then the label agreement
+    rot = {"rot_render_pairs=6": dict(rot_render_pairs=6),
+           "rot_seg_size=512": dict(rot_seg_size=512),
+           "both": dict(rot_render_pairs=6, rot_seg_size=512)}
+    variants = {"default": hf}
+    for name, kw in rot.items():
+        variants[name] = HairFast(dataclasses.replace(cfg, **kw), zoo=hf.zoo, device=device)
+        counted(f"swap_{name}", lambda: variants[name].swap_tensor(*imgs, seed=3407),
+                at_least=2)
+    rows = _swaps_in_turns(variants, imgs, device, n=5)
+    _log_turns("rotate cuts", rows, card)
+    out["rotate"] = rows
+    t0 = time.perf_counter()
+    agreement = counted("fastpath_agreement", lambda: fastpath_agreement.main(
+        ["--n", "16", "--device", str(device)]), at_least=0)
+    log(f"[fastpaths] fastpath_agreement --n 16 --device {device} ({time.perf_counter() - t0:.1f} "
+        f"s; random weights, a reading, not a verdict): {json.dumps(agreement)}  [{card}]")
+    out["agreement"] = agreement
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2448,6 +2732,7 @@ def main() -> int:
     phase("cli", phase_cli, card)
     ev = phase("eval", phase_eval, zoo32, device, card)
     par = phase("parallel", phase_parallel, hf, zoo32, device, card)
+    fast = phase("fastpaths", phase_fastpaths, hf, zoo32, imgs, device, card)
     del zoo32
     unchecked = SEEN - CHECKED
     if unchecked:
@@ -2498,6 +2783,19 @@ def main() -> int:
     log(f"[summary] dilate_erode [3,256,256,1] bf16 x5: {k_ms * 1e3:.2f} us vs its bound "
         f"{bound * 1e3:.3f} us ({bound_by}); [1,1024,1024,1] f32 x30: {kc_ms * 1e3:.2f} us vs "
         f"{bound_c * 1e3:.3f} us ({bound_by_c}); no single PyTorch call computes it")
+    sw, md = fast["swaps"], fast["modules"]
+    log(f"[summary] fastpaths, bf16 B=1 swap p50 in turns (events per swap, idle share): "
+        + ", ".join(f"{k} {v['p50']:.2f} ms ({v['events']:.0f}, {v['idle']:.3f})"
+                    for k, v in sw.items())
+        + "; rotate cuts p50 " + ", ".join(f"{k} {v['p50']:.2f} ms ({v['events']:.0f})"
+                                           for k, v in fast["rotate"].items())
+        + "; packed modules ms unpacked/packed " + ", ".join(
+            f"{k} {v['unpacked_ms']:.3f}/{v['packed_ms']:.3f}" for k, v in md.items())
+        + f"; fused up-blur ms two-pass/fused at 512->1024 {fast['fuse_blur'][-1][3]:.4f}/"
+        f"{fast['fuse_blur'][-1][4]:.4f}; paired f32 swap |diff| {fast['paired_f32'][1]:.2e}, "
+        f"packed {fast['packed_f32'][0]:.2e}; seg512 / pairs6 label agreement "
+        f"{fast['agreement']['seg512']['label_agreement']} / "
+        f"{fast['agreement']['pairs6']['label_agreement']}")
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                       or m.startswith("hairfastgan_tpu"))
     if jax_like:

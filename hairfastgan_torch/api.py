@@ -32,7 +32,7 @@ from hairfastgan_torch.ops.resample import bicubic_downsample
 from hairfastgan_torch.parallel import mesh
 from hairfastgan_torch.params.bridge import map_tree
 from hairfastgan_torch.pipeline.composite import poisson_composite
-from hairfastgan_torch.pipeline.swap import check_config, hair_fast, swap_cases
+from hairfastgan_torch.pipeline.swap import hair_fast, swap_cases
 from hairfastgan_torch.utils import face_align
 from hairfastgan_torch.utils.images import equal_replacer, save_image01, to_image_u8, to_raw_image
 from hairfastgan_torch.utils.save_utils import save_gen_image, save_latents, save_vis_mask
@@ -64,7 +64,6 @@ class HairFast:
 
     def __init__(self, cfg: HairFastConfig = HairFastConfig(), zoo: Optional[Dict] = None,
                  device="cuda"):
-        check_config(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.compute_dtype]

@@ -113,8 +113,10 @@ class HairFastConfig:
     mesh_data_axis: int = 1
     compile_cache_dir: Optional[str] = None
 
-    # fast-path opt-ins of the JAX package; pipeline/swap.check_config
-    # refuses any value but these defaults
+    # fast-path opt-ins, off by default: rot_seg_size parses a larger rotate
+    # render at this size, rot_render_pairs stops that render at this pair
+    # (pipeline/alignment._rotate_and_segment), pair_shape_modules batches
+    # the distinct swap's two shape modules (pipeline/swap.hair_fast)
     rot_seg_size: int = 1024
     rot_render_pairs: Optional[int] = None
     # largest swap_batch chunk on one device; larger batches run as chunks

@@ -3,8 +3,9 @@
 IR-SE-50 backbone (bottleneck_IR / bottleneck_IR_SE), FPN c1/c2/c3 at body
 indices 6/20/23, GradualStyleBlock heads (coarse 0-2 from c3, middle 3-6
 from p2, fine 7.. from p1), w0 broadcast + per-layer deltas + latent_avg.
-Unpacked heads only (the JAX package's `pack_style_heads` is an opt-in the
-port leaves out). NCHW inside; `e4e_encode` takes NHWC.
+`pack_style_heads` (opt-in, through zoo.pack_zoo) re-lays the heads out
+per FPN group; the forward dispatches on the layout it gets. NCHW inside;
+`e4e_encode` takes NHWC.
 """
 
 from __future__ import annotations
@@ -103,8 +104,70 @@ def _upsample_add(x: Tensor, y: Tensor) -> Tensor:
     return resize(x, tuple(y.shape[-2:]), "bilinear", align_corners=True) + y
 
 
+# Head groups by FPN source (psp_encoders.py:146-151): coarse 0-2 from c3,
+# middle 3-6 from p2, fine 7.. from p1. Heads of a group read the same map
+# and have the same conv-chain length.
+_GROUP_BOUNDS = (0, 3, 7)
+
+
+def _head_groups(n_styles: int):
+    bounds = list(_GROUP_BOUNDS) + [n_styles]
+    return [(min(a, n_styles), min(b, n_styles)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def pack_style_heads(p):
+    """The GradualStyleBlock heads packed per FPN group (exact, idempotent):
+    the first 3x3 convs, which read the same map, as one conv with the
+    heads' output channels concatenated ('conv0'); each later conv as one
+    grouped conv over the heads ('chain': w [k,O,I,3,3], b [k,O]); the
+    EqualLinears as one batched product ('lin_w' [k,out,in], 'lin_b').
+    Layouts are the JAX package's pack_style_heads bridged."""
+    if "styles_packed" in p or "styles" not in p:
+        return p
+    packed = []
+    for a, b in _head_groups(len(p["styles"])):
+        heads = p["styles"][a:b]
+        if not heads:
+            continue
+        packed.append({
+            "conv0": {"w": torch.cat([h["convs"][0]["w"] for h in heads]),
+                      "b": torch.cat([h["convs"][0]["b"] for h in heads])},
+            "chain": [{"w": torch.stack([h["convs"][i]["w"] for h in heads]),
+                       "b": torch.stack([h["convs"][i]["b"] for h in heads])}
+                      for i in range(1, len(heads[0]["convs"]))],
+            "lin_w": torch.stack([h["linear"]["w"] for h in heads]),
+            "lin_b": torch.stack([h["linear"]["b"] for h in heads])})
+    q = {k: v for k, v in p.items() if k != "styles"}
+    q["styles_packed"] = packed
+    return q
+
+
+def _packed_head_group(g, x: Tensor) -> Tensor:
+    """One packed group: [B,Cin,H,W] -> [B,k,512] head outputs. The JAX
+    package runs the chain as shift-slice einsums (a TPU lowering); here
+    each link is one grouped conv with groups=k."""
+    k = g["lin_w"].shape[0]
+    x = F.leaky_relu(conv2d_p(g["conv0"], x, stride=2, padding=1), 0.01)
+    for c in g["chain"]:
+        w = c["w"].to(x.dtype)
+        x = F.leaky_relu(F.conv2d(x, w.reshape(-1, *w.shape[2:]),
+                                  c["b"].to(x.dtype).reshape(-1), stride=2, padding=1,
+                                  groups=k), 0.01)
+    x = x.reshape(x.shape[0], k, -1)  # spatial is 1x1 here
+    w = g["lin_w"].to(x.dtype) * (1.0 / math.sqrt(g["lin_w"].shape[2]))
+    return torch.einsum("bkc,kdc->bkd", x, w) + g["lin_b"].to(x.dtype)
+
+
 def _all_style_latents(p, c1: Tensor, c2: Tensor, c3: Tensor) -> Tensor:
     """All n_styles head outputs stacked [B, n, 512]."""
+    if "styles_packed" in p:
+        groups = p["styles_packed"]
+        feats = [c3]
+        if len(groups) > 1:
+            feats.append(_upsample_add(c3, conv2d_p(p["latlayer1"], c2)))
+        if len(groups) > 2:
+            feats.append(_upsample_add(feats[1], conv2d_p(p["latlayer2"], c1)))
+        return torch.cat([_packed_head_group(g, f) for g, f in zip(groups, feats)], dim=1)
     n = len(p["styles"])
     latents = [gradual_style_block(p["styles"][j], c3) for j in range(min(3, n))]
     if n > 3:

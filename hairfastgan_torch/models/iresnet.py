@@ -4,7 +4,9 @@ hairfastgan_tpu/models/iresnet.py).
 IBasicBlock: out = bn3(conv2_s(prelu(bn2(conv1(bn1(x)))))) + downsample(x).
 `fs_encode` is fs_encoder_v2 / FeatureEncoderMult (S codes from the pooled
 stage features + content maps); `feature_iresnet` is the PostProcess
-F-fuser. NCHW inside; the public functions take and return NHWC maps.
+F-fuser. `pack_fs_styles` (opt-in, through zoo.pack_zoo) stacks the style
+heads into one product. NCHW inside; the public functions take and return
+NHWC maps.
 """
 
 from __future__ import annotations
@@ -107,6 +109,19 @@ def init_fs_encoder(n_styles: int = 18, fs_layers: Sequence[int] = (5,),
     }
 
 
+def pack_fs_styles(p):
+    """The n_styles Linear(960*9 -> 512) heads stacked (exact, idempotent):
+    'styles_w' [n,512,8640] and 'styles_b' [n,512], the JAX package's
+    pack_fs_styles bridged. fs_encode then runs them as ONE [B,8640] x
+    [8640, n*512] product."""
+    if "styles_w" in p or "styles" not in p:
+        return p
+    q = {k: v for k, v in p.items() if k != "styles"}
+    q["styles_w"] = torch.stack([h["w"] for h in p["styles"]])
+    q["styles_b"] = torch.stack([h["b"] for h in p["styles"]])
+    return q
+
+
 def fs_encode_nchw(p, x: Tensor) -> Tuple[Tensor, List[Tensor]]:
     feats = trunk_features(p["trunk"], x)
     src = feats[1] if max(p["fs_layers"]) > 7 else feats[2]
@@ -114,7 +129,12 @@ def fs_encode_nchw(p, x: Tensor) -> Tuple[Tensor, List[Tensor]]:
     # style input: AdaptiveAvgPool(3,3) of every stage, concatenated over
     # channels and flattened channel-major (torch NCHW order)
     flat = torch.cat([F.adaptive_avg_pool2d(f, (3, 3)) for f in feats], dim=1).flatten(1)
-    styles = torch.stack([linear(h, flat) for h in p["styles"]], dim=1)
+    if "styles_w" in p:  # packed (pack_fs_styles): one linear over the heads' rows
+        n, d, f = p["styles_w"].shape
+        styles = F.linear(flat, p["styles_w"].to(flat.dtype).reshape(n * d, f),
+                          p["styles_b"].to(flat.dtype).reshape(n * d)).reshape(-1, n, d)
+    else:
+        styles = torch.stack([linear(h, flat) for h in p["styles"]], dim=1)
     return styles, content
 
 

@@ -7,6 +7,8 @@
     learned sigmoid gates; per-channel noise; affine-free BatchNorm
   * SPADEResnetBlock + SPADEGenerator, 256^2 'normal' config
   * decode_sean's fallback: all-zero region codes take the stored mean_codes
+  * `pack_sean` (opt-in, through zoo.pack_zoo): each ACE's 19 fc_mu heads
+    as one batched product and its gamma/beta conv pairs as one conv each
 
 Spectral norm is already baked into the weights by the converter. NCHW
 inside; `sean_encode`/`sean_decode` take NHWC images and [B,H,W] labels and
@@ -101,15 +103,25 @@ def ace(p, x: Tensor, seg_onehot: Tensor, style_codes: Optional[Tensor],
     normalized = batch_norm(p["bn"], x)
     seg = resize(seg_onehot, tuple(x.shape[-2:]), "nearest")
     a = torch.relu(conv2d_p(p["spade"]["shared"], seg, padding=1))
-    gamma_spade = conv2d_p(p["spade"]["gamma"], a, padding=1)
-    beta_spade = conv2d_p(p["spade"]["beta"], a, padding=1)
-    if "fc_mu" in p and style_codes is not None:
+    if "gb" in p["spade"]:  # packed: one conv with [gamma|beta] output channels
+        gamma_spade, beta_spade = conv2d_p(p["spade"]["gb"], a, padding=1).chunk(2, dim=1)
+    else:
+        gamma_spade = conv2d_p(p["spade"]["gamma"], a, padding=1)
+        beta_spade = conv2d_p(p["spade"]["beta"], a, padding=1)
+    if ("fc_mu" in p or "fc_mu_w" in p) and style_codes is not None:
         codes = style_codes.to(x.dtype)
-        mu = torch.relu(torch.stack([F.linear(codes[:, j], f["w"].to(x.dtype),
-                                              f["b"].to(x.dtype))
-                                     for j, f in enumerate(p["fc_mu"])], dim=1))
-        gamma_avg = _region_conv(p["conv_gamma"], mu, seg)
-        beta_avg = _region_conv(p["conv_beta"], mu, seg)
+        if "fc_mu_w" in p:  # packed: the 19 region heads as one batched product
+            mu = torch.relu(torch.einsum("bks,kds->bkd", codes, p["fc_mu_w"].to(x.dtype))
+                            + p["fc_mu_b"].to(x.dtype))
+        else:
+            mu = torch.relu(torch.stack([F.linear(codes[:, j], f["w"].to(x.dtype),
+                                                  f["b"].to(x.dtype))
+                                         for j, f in enumerate(p["fc_mu"])], dim=1))
+        if "conv_gb" in p:  # packed: gamma|beta share one region conv
+            gamma_avg, beta_avg = _region_conv(p["conv_gb"], mu, seg).chunk(2, dim=1)
+        else:
+            gamma_avg = _region_conv(p["conv_gamma"], mu, seg)
+            beta_avg = _region_conv(p["conv_beta"], mu, seg)
         ga = torch.sigmoid(p["blend_gamma"].float()).to(x.dtype)
         ba = torch.sigmoid(p["blend_beta"].float()).to(x.dtype)
         gamma = ga * gamma_avg + (1 - ga) * gamma_spade
@@ -156,6 +168,39 @@ def init_sean_generator(ngf: int = 64, z_ngf: int = 32):
         "conv_img": init_conv(3, ngf, 3),
         "mean_codes": spec(N_REGIONS, STYLE_LEN),
     }
+
+
+def _cat_conv(a, b):
+    return {"w": torch.cat([a["w"], b["w"]]), "b": torch.cat([a["b"], b["b"]])}
+
+
+def _pack_ace(p):
+    """One ACE packed (exact, idempotent): fc_mu -> 'fc_mu_w' [19,out,in] and
+    'fc_mu_b' [19,out]; spade gamma/beta -> spade 'gb'; conv_gamma/conv_beta
+    -> 'conv_gb' (output channels concatenated, gamma first). The JAX
+    package's _pack_ace bridged."""
+    if "fc_mu_w" in p or ("fc_mu" not in p and "gb" in p["spade"]):
+        return p
+    q = dict(p)
+    sp = p["spade"]
+    if "gamma" in sp:
+        q["spade"] = {"shared": sp["shared"], "gb": _cat_conv(sp["gamma"], sp["beta"])}
+    if "fc_mu" in p:
+        q["fc_mu_w"] = torch.stack([f["w"] for f in p["fc_mu"]])
+        q["fc_mu_b"] = torch.stack([f["b"] for f in p["fc_mu"]])
+        q["conv_gb"] = _cat_conv(p["conv_gamma"], p["conv_beta"])
+        for k in ("fc_mu", "conv_gamma", "conv_beta"):
+            del q[k]
+    return q
+
+
+def pack_sean(p):
+    """Every ACE of the SEAN generator packed (exact, idempotent)."""
+    q = dict(p)
+    for name in ("head0", "mid0", "mid1", "up0", "up1", "up2", "up3"):
+        q[name] = {k: _pack_ace(v) if k in ("ace0", "ace1", "ace_s") else v
+                   for k, v in q[name].items()}
+    return q
 
 
 def sean_encode(p, img: Tensor, labels: Tensor) -> Tensor:

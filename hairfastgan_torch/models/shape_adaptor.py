@@ -138,9 +138,14 @@ def get_hair_code(p, labels256: Tensor) -> Tensor:
 
 
 def get_new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:
-    """codes -> recombined 19-class labels [B,256,256] (solver.py:259-262);
-    argmax of the logits == argmax of their softmax."""
-    hair_logit = mask_decode(p["hair_decoder"], torch.cat([face_code, hair_code], dim=-1))
-    face_logit = mask_decode(p["face_decoder"], face_code)
+    """codes [B,1024] x [k*B,16] -> recombined 19-class labels [k*B,256,256]
+    (solver.py:259-262); argmax of the logits == argmax of their softmax.
+    With k > 1 hair codes per face code (one face recombined with the shape
+    and the color pair's hair) the face decoder runs once at B and its
+    logits are tiled k times: exact, as they depend on the face code only."""
+    k = hair_code.shape[0] // face_code.shape[0]
+    hair_logit = mask_decode(p["hair_decoder"],
+                             torch.cat([face_code.repeat(k, 1), hair_code], dim=-1))
+    face_logit = mask_decode(p["face_decoder"], face_code).repeat(k, 1, 1, 1)
     logit = torch.cat([face_logit[:, :HAIR_IDX], hair_logit, face_logit[:, HAIR_IDX:]], dim=1)
     return torch.argmax(logit, dim=1).to(torch.int32)

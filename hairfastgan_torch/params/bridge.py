@@ -8,6 +8,9 @@ port keeps OIHW and [out, in] (ops/basic.py). Every leaf goes through
     (ops/modconv.py flips them back for conv_transpose2d).
   * 'w' of rank 2 (linear / EqualLinear): [in, out] -> [out, in]
   * the generator's constant 'input' [1,4,4,C] (NHWC) -> NCHW
+  * the packed layouts of zoo.pack_zoo: e4e's 'chain' kernels 'w' of rank
+    5, [k,kh,kw,I,O] -> [k,O,I,kh,kw]; the stacked linears 'lin_w' (e4e),
+    'styles_w' (FSE) and 'fc_mu_w' (SEAN), [k,in,out] -> [k,out,in]
   * everything else (biases, norms, embeddings, CLIP's raw 'proj' matrix)
     unchanged.
 `models/layers.Static` leaves become their `.value`. The module imports no
@@ -22,12 +25,19 @@ import numpy as np
 import torch
 
 
+_STACKED_LINEARS = ("lin_w", "styles_w", "fc_mu_w")
+
+
 def to_port(key: Optional[str], t: torch.Tensor) -> torch.Tensor:
     """One leaf in JAX layout -> port layout (a view; callers copy)."""
     if key == "w" and t.ndim == 4:
         return t.permute(3, 2, 0, 1)
     if key == "w" and t.ndim == 2:
         return t.transpose(0, 1)
+    if key == "w" and t.ndim == 5:
+        return t.permute(0, 4, 3, 1, 2)
+    if key in _STACKED_LINEARS and t.ndim == 3:
+        return t.transpose(1, 2)
     if key == "input" and t.ndim == 4:
         return t.permute(0, 3, 1, 2)
     return t

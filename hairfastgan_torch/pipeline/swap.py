@@ -19,7 +19,8 @@ from typing import Dict, Optional
 import torch
 
 from hairfastgan_torch.config import HairFastConfig
-from hairfastgan_torch.pipeline.alignment import align_images, shape_module
+from hairfastgan_torch.pipeline.alignment import (align_images, shape_module,
+                                                  shape_module_pair)
 from hairfastgan_torch.pipeline.blending import blend_images
 from hairfastgan_torch.pipeline.embedding import embed_images
 
@@ -41,14 +42,6 @@ def swap_cases(face, shape, color) -> str:
     return "distinct"
 
 
-def check_config(cfg: HairFastConfig) -> None:
-    """The JAX package's measured-negative opt-ins are not ported."""
-    if (cfg.pair_shape_modules or cfg.rot_render_pairs is not None
-            or cfg.rot_seg_size < cfg.stylegan.size):
-        raise NotImplementedError("pair_shape_modules / rot_render_pairs / reduced "
-                                  "rot_seg_size are not part of the port")
-
-
 def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
               case: str = "distinct", cfg: HairFastConfig = HairFastConfig(),
               dtype: torch.dtype = torch.float32,
@@ -67,13 +60,19 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
     builds it) H-bands the >= from_res generator renders over its devices:
     the multi-device latency path. The rest of the swap runs on the inputs'
     device, where the result is assembled. Zero noise and no intermediates
-    only."""
+    only.
+
+    cfg.pair_shape_modules runs the distinct case's two shape modules as one
+    batch (not with `sp`); cfg.rot_render_pairs and cfg.rot_seg_size cut the
+    rotate render and its parse (alignment._rotate_and_segment). All three
+    are off by default. The paired path gives the sequential path's output
+    at zero noise; with a generator its one [2b,...] render draws other
+    noise than two [b,...] renders do."""
     if case not in CASES:
         raise ValueError(f"case must be one of {CASES}, got {case!r}")
     if sp is not None and (generator is not None or return_intermediate):
         raise ValueError("spatially-sharded swap supports the deterministic "
                          "zero-noise path without intermediates only")
-    check_config(cfg)
     b = face.shape[0]
 
     def split(emb, i):
@@ -96,13 +95,22 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
         else:  # face_eq_color
             e_shape, e_color = split(emb, 1), e_face
 
-    align_shape = align_images(zoo, e_face, e_shape, same=case in ("face_eq_shape", "same"),
-                               cfg=cfg, dtype=dtype, generator=generator, sp=sp)
-    if case in ("shape_eq_color", "same"):
-        align_color = align_shape
+    if case == "distinct" and cfg.pair_shape_modules and sp is None:
+        # both shape modules as one batch of 2b (opt-in; equal to the
+        # sequential calls at zero noise only, see shape_module_pair)
+        sm_shape, align_color = shape_module_pair(zoo, e_face, e_shape, e_color, cfg=cfg,
+                                                  dtype=dtype, generator=generator)
+        align_shape = align_images(zoo, e_face, e_shape, cfg=cfg, dtype=dtype,
+                                   generator=generator, sm=sm_shape)
     else:
-        align_color = shape_module(zoo, e_face, e_color, same=(case == "face_eq_color"),
-                                   cfg=cfg, dtype=dtype, generator=generator, sp=sp)
+        align_shape = align_images(zoo, e_face, e_shape,
+                                   same=case in ("face_eq_shape", "same"), cfg=cfg,
+                                   dtype=dtype, generator=generator, sp=sp)
+        if case in ("shape_eq_color", "same"):
+            align_color = align_shape
+        else:
+            align_color = shape_module(zoo, e_face, e_color, same=(case == "face_eq_color"),
+                                       cfg=cfg, dtype=dtype, generator=generator, sp=sp)
     out = blend_images(zoo, align_shape, align_color, e_face, e_color,
                        all_same=(case == "same"), cfg=cfg, dtype=dtype, generator=generator,
                        return_intermediate=return_intermediate, sp=sp)

@@ -214,6 +214,26 @@ def init_discriminator(cfg: StyleGANConfig, seed: Optional[int] = 0, device="cpu
     return map_tree(shapes, leaf)
 
 
+def pack_zoo(zoo: Dict) -> Dict:
+    """The zoo with its many small ops' weights packed (exact, idempotent,
+    opt-in; counterpart of the JAX package's zoo.pack_zoo): e4e's style
+    heads per FPN group (e4e.pack_style_heads), every SEAN ACE's fc_mu heads
+    and gamma/beta pairs (sean.pack_sean), and the style heads of the FSE
+    and of the PostProcess face encoder (iresnet.pack_fs_styles). The model
+    forwards dispatch on the layout they get; HairFast does not pack."""
+    q = dict(zoo)
+    if "e4e" in q:
+        q["e4e"] = e4e.pack_style_heads(q["e4e"])
+    if "sean" in q:
+        q["sean"] = sean.pack_sean(q["sean"])
+    if "fse" in q:
+        q["fse"] = iresnet.pack_fs_styles(q["fse"])
+    if "post_process" in q and "encoder_face" in q["post_process"]:
+        q["post_process"] = dict(q["post_process"], encoder_face=iresnet.pack_fs_styles(
+            q["post_process"]["encoder_face"]))
+    return q
+
+
 def cast_zoo(zoo: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Float leaves -> the compute dtype (the JAX package's zoo.cast_zoo);
     norm statistics are promoted back to f32 inside the norm folds."""

@@ -104,8 +104,3 @@ def test_api_bf16(live):
     out = hf.swap_tensor(img, img[::-1].copy(), img[:, ::-1].copy())
     assert out.dtype == torch.bfloat16 and out.shape == (128, 128, 3)
     assert torch.isfinite(out.float()).all()
-
-
-def test_unported_opt_ins_raise(micro):
-    with pytest.raises(NotImplementedError):
-        HairFast(HairFastConfig(pair_shape_modules=True), zoo=micro[0], device="cpu")
