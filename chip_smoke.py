@@ -73,6 +73,14 @@ Phases (any failure exits nonzero and prints no result line):
      modulated_conv2d(fuse_blur=True) for every up StyledConv 8^2 -> 1024^2
      (ms, device us, f32 difference), rot_render_pairs=6 / rot_seg_size=512
      (bf16 p50), and scripts/fastpath_agreement --n 16 on the card
+ 17. model_axis: the full-width generator (1024^2, 18 latents) placed by
+     shard_params_model_axis on (1, 2), (1, 4) and (2, 2) meshes of the one
+     card repeated and run column-parallel (parallel/tensor.py): mapping,
+     generate at B=2, G[0..3] and G[4..8] from F in f32 against the
+     unsharded calls (1e-4 of max |y|), the bf16 render (mean |diff| at most
+     twice the unsharded bf16 render's own), the exact all_gather counts,
+     MeshPlan.spatial()'s H bands, and bf16 p50 and peak memory beside the
+     unsharded render's (the math, not multi-card speed)
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -2684,6 +2692,168 @@ def phase_fastpaths(hf, zoo32, imgs, device, card: str) -> dict:
     return out
 
 
+# all_gathers of the column-parallel generator at full width (StyleGAN2-FFHQ
+# 1024^2, channel_multiplier 2): one per split leaf that a call runs through,
+# the weights of the split layers never move. mapping: its 8 linears; a
+# render: the constant input, conv1 (style, output), to_rgb1 (style), pairs
+# 1-4 at 512 channels (two convs' styles and outputs and the ToRGB style: 5
+# each) and pair 5's up conv style (its input has 512 channels, its output
+# 256); G[0..3]: the render's first 19; G[4..8] from F: pairs 4 and 5's 6
+MODEL_AXIS_GATHERS = {"mapping": 8, "render": 25, "g03": 19, "g48": 6}
+MODEL_AXIS_SPLIT = 33  # leaves the model axis splits: the gathers' 8 + 25
+
+
+def phase_model_axis(device, card: str) -> dict:
+    """The model axis at full width: the StyleGAN2-FFHQ generator at 1024^2
+    (18 latents, drawn by its init law from a numpy seed) placed by
+    parallel.mesh.shard_params_model_axis on (1, 2), (1, 4) and (2, 2)
+    meshes of the one card repeated ([cuda:0] * n: the math, not multi-card
+    speed) and run column-parallel (parallel/tensor.py): mapping ->
+    latent_to_wplus -> generate at B=2, G[0..3] and G[4..8] from F, each in
+    f32 against the unsharded call within 1e-4 of max |y| (TF32 off); the
+    bf16 render's mean |diff| from the unsharded f32 render at most twice
+    the unsharded bf16 render's own; the exact all_gather counts; the H
+    bands of MeshPlan.spatial() against slices of the render; bf16 p50 (CUDA
+    events, in turns) and peak memory beside the unsharded render's. The
+    path launches no dilate_erode (the generator has none)."""
+    import torch
+
+    from hairfastgan_torch.config import StyleGANConfig
+    from hairfastgan_torch.models import stylegan2 as G
+    from hairfastgan_torch.parallel import mesh, tensor
+    from hairfastgan_torch.scripts import fastpath_agreement
+    from hairfastgan_torch.zoo import cast_zoo
+
+    sg = StyleGANConfig()
+    gen = fastpath_agreement.scaled_generator(sg, 0, device)
+    gen["style"] = mapping_init(1, sg, device)["style"]  # w off its biases
+    gen16 = cast_zoo(gen, torch.bfloat16)
+    n_split = sum(d is not None for d in _tree_values(mesh.model_split_dims(gen, 2)))
+    if n_split != MODEL_AXIS_SPLIT:
+        raise AssertionError(f"the model axis splits {n_split} generator leaves, expected "
+                             f"{MODEL_AXIS_SPLIT}")
+    z = torch.from_numpy(np.random.default_rng(18).standard_normal((2, 512), dtype=np.float32)
+                         ).to(device)
+
+    def moves():
+        return {k: v for k, v in mesh.MOVES.items() if v}
+
+    out = {"meshes": {}}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            w1 = G.mapping(gen, z, sg)
+            lat = G.latent_to_wplus(w1, sg.n_latent)
+            img1 = G.generate(gen, lat, cfg=sg)
+            f1, s1 = G.synthesis(gen, lat, start_layer=0, end_layer=3, cfg=sg,
+                                 dtype=torch.float32)
+            g48 = G.synthesis(gen, lat, start_layer=4, end_layer=8, layer_in=f1, skip=s1,
+                              cfg=sg, dtype=torch.float32)
+            img16 = G.generate(gen16, lat, cfg=sg, dtype=torch.bfloat16)
+            own16 = float((img16.float() - img1).abs().mean())
+            scale = float(img1.abs().max())
+            for shape in ((1, 2), (1, 4), (2, 2)):
+                name = "x".join(map(str, shape))
+                plan = mesh.make_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
+                tp = mesh.shard_params_model_axis(plan, gen)
+                calls = {}
+
+                def run(key, fn):
+                    mesh.MOVES.clear()
+                    res = counted(f"model_axis {name} {key}", fn, at_least=0)
+                    calls[key] = moves()
+                    if calls[key].get("all_gather") != MODEL_AXIS_GATHERS[key]:
+                        raise AssertionError(f"model axis {name} {key}: moves {calls[key]}, "
+                                             f"expected {MODEL_AXIS_GATHERS[key]} all_gathers")
+                    return res
+
+                w = run("mapping", lambda: tensor.mapping(tp, z, sg))
+                img = run("render", lambda: tensor.generate(
+                    tp, G.latent_to_wplus(w, sg.n_latent), cfg=sg))
+                f, s = run("g03", lambda: tensor.synthesis(tp, lat, start_layer=0, end_layer=3,
+                                                           cfg=sg, dtype=torch.float32))
+                g = run("g48", lambda: tensor.synthesis(
+                    tp, lat, start_layer=4, end_layer=8, layer_in=f1, skip=s1, cfg=sg,
+                    dtype=torch.float32))
+                errs = {"mapping": (w, w1), "render": (img, img1), "g03 features": (f, f1),
+                        "g03 skip": (s, s1), "g48 features": (g[0], g48[0]),
+                        "g48 skip": (g[1], g48[1])}
+                errs = {k: (float((a - b).abs().max()), float(b.abs().max()))
+                        for k, (a, b) in errs.items()}
+                bad = {k: e for k, e in errs.items() if not e[0] <= 1e-4 * e[1]}
+                tp16 = mesh.shard_params_model_axis(plan, gen16)
+                img16m = tensor.generate(tp16, lat, cfg=sg, dtype=torch.bfloat16)
+                got16 = float((img16m.float() - img1).abs().mean())
+                max16 = float((img16m.float() - img16.float()).abs().max())
+                bands = mesh.place(plan, img, plan.spatial())
+                n_band = shape[1]
+                h = img.shape[1] // n_band
+                band_ok = all(torch.equal(bands[k], img[:, j * h:(j + 1) * h])
+                              for k, (_, j) in enumerate(np.ndindex(*shape)))
+                log(f"[model_axis] {name} mesh on [{device}] * {shape[0] * shape[1]}: f32 max "
+                    f"|diff| vs unsharded (of max |y|): " + ", ".join(
+                        f"{k} {e[0]:.3e} ({e[1]:.3e})" for k, e in errs.items())
+                    + f" (limit 1e-4 of max |y|); bf16 render mean |diff| from the f32 render "
+                    f"{got16:.3e}, unsharded bf16's own {own16:.3e} (limit 2x), max |diff| from "
+                    f"the unsharded bf16 render {max16:.3e}; moves {calls}; {n_band} H bands "
+                    f"{'equal' if band_ok else 'DIFFER from'} the render's slices")
+                if bad:
+                    raise AssertionError(f"model axis {name} off the unsharded calls: {bad}")
+                if not (np.isfinite(got16) and got16 <= 2 * own16):
+                    raise AssertionError(f"model axis {name} bf16 render off by {got16} "
+                                         f"(unsharded bf16 {own16})")
+                if not band_ok:
+                    raise AssertionError(f"model axis {name}: spatial bands differ")
+                out["meshes"][name] = {"errs": errs, "bf16_mean": got16, "bf16_max": max16,
+                                       "tp16": tp16}
+            out["bf16_own"], out["scale"] = own16, scale
+            del w, img, f, s, g, f1, s1, g48, img16, img16m, tp, bands
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # bf16 B=2 renders in turns (order reversed every other round), p50 by
+    # CUDA events; peak memory of one render above what is resident
+    renders = {"unsharded": lambda: G.generate(gen16, lat, cfg=sg, dtype=torch.bfloat16)}
+    for name, m in out["meshes"].items():
+        renders[name] = (lambda tp: lambda: tensor.generate(tp, lat, cfg=sg,
+                                                            dtype=torch.bfloat16))(m.pop("tp16"))
+    times = {k: [] for k in renders}
+    peak = {}
+    with torch.inference_mode():
+        for k, fn in renders.items():
+            cuda_ms(fn, 2)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn()
+            torch.cuda.synchronize()
+            peak[k] = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+        for r in range(10):
+            for k in (list(renders) if r % 2 == 0 else list(renders)[::-1]):
+                times[k].append(cuda_ms(renders[k], 1))
+    out["p50"] = {k: statistics.median(v) for k, v in times.items()}
+    out["peak_gib"] = peak
+    log(f"[model_axis] generate bf16 B=2 1024^2 p50 of 10 (CUDA events, in turns; one card: "
+        f"the meshes run every position's work on it, so this reads the math's cost, not "
+        f"multi-card speed): " + ", ".join(
+            f"{k} {out['p50'][k]:.2f} ms (min {min(times[k]):.2f}, max {max(times[k]):.2f}; "
+            f"peak {peak[k]:.3f} GiB)" for k in renders) + f"  [{card}]")
+    del renders, gen, gen16
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_values(tree) -> list:
+    """The leaves of a nested dict / list tree, Nones and ints included (a
+    split-dims tree), in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _tree_values(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tree_values(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -2733,6 +2903,7 @@ def main() -> int:
     ev = phase("eval", phase_eval, zoo32, device, card)
     par = phase("parallel", phase_parallel, hf, zoo32, device, card)
     fast = phase("fastpaths", phase_fastpaths, hf, zoo32, imgs, device, card)
+    tp = phase("model_axis", phase_model_axis, device, card)
     del zoo32
     unchecked = SEEN - CHECKED
     if unchecked:
@@ -2796,6 +2967,13 @@ def main() -> int:
         f"packed {fast['packed_f32'][0]:.2e}; seg512 / pairs6 label agreement "
         f"{fast['agreement']['seg512']['label_agreement']} / "
         f"{fast['agreement']['pairs6']['label_agreement']}")
+    log(f"[summary] model_axis (one card repeated): generate bf16 B=2 p50 "
+        + ", ".join(f"{k} {v:.2f} ms ({tp['peak_gib'][k]:.3f} GiB)" for k, v in tp["p50"].items())
+        + "; f32 render max |diff| " + ", ".join(
+            f"{k} {m['errs']['render'][0]:.2e}" for k, m in tp["meshes"].items())
+        + f" of max |y| {tp['scale']:.3f}; bf16 mean |diff| " + ", ".join(
+            f"{k} {m['bf16_mean']:.3e}" for k, m in tp["meshes"].items())
+        + f" (unsharded {tp['bf16_own']:.3e})  [{card}]")
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                       or m.startswith("hairfastgan_tpu"))
     if jax_like:

@@ -198,6 +198,18 @@ def e4e_encode_nchw(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     return w
 
 
+def gradual_style_encode(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
+    """The pSp GradualStyleEncoder variant (psp_encoders.py:57-123) on the
+    e4e tree (init_e4e): x NHWC [B,256,256,3] in [-1,1] -> W+ [B,n,512],
+    each row its own FPN style (coarse 0-2 from c3, middle 3-6 from p2,
+    fine 7.. from p1), no w0 broadcast or deltas."""
+    c1, c2, c3 = irse_pyramid(p["backbone"], x.permute(0, 3, 1, 2))
+    w = _all_style_latents(p, c1, c2, c3)
+    if add_latent_avg:
+        w = w + p["latent_avg"].to(w.dtype)[None]
+    return w
+
+
 def e4e_encode(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     """x: [B,256,256,3] in [-1,1] (NHWC) -> W+ [B,n_styles,512]
     (psp_encoders.py:187-200 + model_utils.py:7-14)."""

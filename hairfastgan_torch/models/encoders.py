@@ -12,7 +12,7 @@ NHWC, in [-1, 1].
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +94,45 @@ def init_post_process_model(n_latent: int = 18):
             "to_feature": iresnet.init_feature_iresnet(),
             "to_latent_1": [init_modulation_module() for _ in range(5)],
             "to_latent_2": [init_modulation_module() for _ in range(5)]}
+
+
+def init_post_process_train_model(use_mod: bool = True, n_latent: int = 18):
+    """The training variant's tree (scripts/pp_train.py:278-298): use_mod=False
+    swaps the two modulation stacks for one Linear(1024,1024) + LN + LReLU +
+    Linear(1024,512) head over cat(s_face, s_hair)."""
+    p = init_post_process_model(n_latent)
+    if not use_mod:
+        del p["to_latent_1"], p["to_latent_2"]
+        p["to_latent"] = mlp_ln_lrelu(1024, 1024, 512)
+    return p
+
+
+def post_process_model_train(p, source: Tensor, target: Tensor,
+                             target_mask: Optional[Tensor] = None, *, pretrain: bool = False,
+                             use_mod: bool = True, use_full: bool = True
+                             ) -> Tuple[Tensor, Tensor]:
+    """The training forward with the reference's variant flags
+    (pp_train.py:299-327), NHWC images at 256: pretrain returns the
+    single-image inversion (latent_avg + S_face, F_face); use_full=False
+    blends the two F maps with the target mask [B,H,W,1] at 64x64
+    (nearest); use_mod=False runs the `to_latent` head."""
+    s_face, (f_face,) = iresnet.fs_encode(p["encoder_face"], source)
+    avg = p["latent_avg"].to(s_face.dtype)[None]
+    if pretrain:
+        return avg + s_face, f_face
+    s_hair, (f_hair,) = iresnet.fs_encode(p["encoder_face"], target)
+    if use_mod:
+        d_face = modulation_stack(p["to_latent_1"], pixel_norm(s_face, dim=1), s_hair)
+        d_hair = modulation_stack(p["to_latent_2"], pixel_norm(s_hair, dim=1), s_face)
+        s_final = avg + 0.1 * (d_face + d_hair)
+    else:
+        s_final = avg + _branch(p["to_latent"], torch.cat([s_face, s_hair], dim=-1))
+    if use_full:
+        cat_f = torch.cat([f_face, f_hair], dim=-1)
+    else:
+        tm = resize(target_mask.permute(0, 3, 1, 2), (64, 64), "nearest").permute(0, 2, 3, 1)
+        cat_f = torch.cat([f_face * tm, f_hair * (1 - tm)], dim=-1)
+    return s_final, iresnet.feature_iresnet(p["to_feature"], cat_f)
 
 
 def post_process_model(p, source: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:

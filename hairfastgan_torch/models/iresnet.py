@@ -78,6 +78,23 @@ def trunk_features(p, x: Tensor) -> List[Tensor]:
     return feats
 
 
+def init_arcface(depth: int = 50, num_features: int = 512):
+    """The IResNet ArcFace identity model (112x112 -> num_features)."""
+    # features_bn: BatchNorm1d, its weight frozen to 1 (Net.py:240-242)
+    return {"trunk": init_trunk(depth), "bn2": init_bn(512),
+            "fc": init_linear(512 * 7 * 7, num_features),
+            "features_bn": init_bn(num_features)}
+
+
+def arcface_embed(p, x: Tensor) -> Tensor:
+    """x: NHWC [B,112,112,3] in [-1,1] -> [B,num_features] identity embedding
+    (the trunk's last map batch-normed and flattened in NCHW order, as
+    torch flattens it)."""
+    f4 = trunk_features(p["trunk"], x.permute(0, 3, 1, 2))[-1]
+    y = batch_norm(p["bn2"], f4).flatten(1)
+    return batch_norm(p["features_bn"], linear(p["fc"], y))
+
+
 def _init_content_layer(cin: int, kernel, stride, out_ch: int = 512):
     return {"bn0": init_bn(cin), "conv1": init_conv(3, cin, out_ch, bias=False),
             "bn1": init_bn(out_ch), "prelu": init_prelu(out_ch),

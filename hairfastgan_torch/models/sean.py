@@ -17,7 +17,7 @@ return NHWC.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +72,16 @@ def init_ace(norm_nc: int, use_rgb: bool = True):
     return p
 
 
+def spade_gamma_beta(p, seg: Tensor) -> Tuple[Tensor, Tensor]:
+    """SPADE's (gamma, beta) maps from the NCHW one-hot `seg` (the packed
+    tree's "gb" conv gives both in one)."""
+    a = torch.relu(conv2d_p(p["shared"], seg, padding=1))
+    if "gb" in p:  # packed: one conv with [gamma|beta] output channels
+        g, b = conv2d_p(p["gb"], a, padding=1).chunk(2, dim=1)
+        return g, b
+    return conv2d_p(p["gamma"], a, padding=1), conv2d_p(p["beta"], a, padding=1)
+
+
 def _region_conv(conv_p, mu: Tensor, seg: Tensor) -> Tensor:
     """conv3x3(region_broadcast(mu)) without materializing the broadcast map.
 
@@ -102,12 +112,7 @@ def ace(p, x: Tensor, seg_onehot: Tensor, style_codes: Optional[Tensor],
         x = x + z * p["noise_var"].to(x.dtype).view(1, -1, 1, 1)
     normalized = batch_norm(p["bn"], x)
     seg = resize(seg_onehot, tuple(x.shape[-2:]), "nearest")
-    a = torch.relu(conv2d_p(p["spade"]["shared"], seg, padding=1))
-    if "gb" in p["spade"]:  # packed: one conv with [gamma|beta] output channels
-        gamma_spade, beta_spade = conv2d_p(p["spade"]["gb"], a, padding=1).chunk(2, dim=1)
-    else:
-        gamma_spade = conv2d_p(p["spade"]["gamma"], a, padding=1)
-        beta_spade = conv2d_p(p["spade"]["beta"], a, padding=1)
+    gamma_spade, beta_spade = spade_gamma_beta(p["spade"], seg)
     if ("fc_mu" in p or "fc_mu_w" in p) and style_codes is not None:
         codes = style_codes.to(x.dtype)
         if "fc_mu_w" in p:  # packed: the 19 region heads as one batched product

@@ -12,6 +12,7 @@ eps added to the std. Functions take and return [B,256,256] int labels.
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -135,6 +136,13 @@ def get_hair_code(p, labels256: Tensor) -> Tensor:
     """labels [B,256,256] -> hair code [B,16] (VAE mean, test path)."""
     onehot = one_hot_mask(labels256, N_CLASSES)
     return mask_encode(p["hair_encoder"], onehot[:, HAIR_IDX:HAIR_IDX + 1])
+
+
+def get_hair_face_code(p, labels256: Tensor) -> Tuple[Tensor, Tensor]:
+    """labels [B,256,256] -> (face code [B,1024], hair code [B,16])
+    (solver.py:248-256); the pipeline needs only one of the two per mask
+    and calls the two functions above."""
+    return get_face_code(p, labels256), get_hair_code(p, labels256)
 
 
 def get_new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:

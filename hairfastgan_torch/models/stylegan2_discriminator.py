@@ -14,10 +14,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from hairfastgan_torch.models.layers import spec
-from hairfastgan_torch.ops.equalized import equal_linear
+from hairfastgan_torch.ops.equalized import equal_conv2d, equal_linear
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 from hairfastgan_torch.ops.upfirdn2d import blur2d
 from hairfastgan_torch.parallel import mesh
@@ -53,9 +52,7 @@ def _equal_conv(p, x: Tensor, *, stride: int = 1, padding: int = 0, bias=None,
                 activate: bool = True) -> Tensor:
     """EqualConv2d (OIHW weight scaled by 1/sqrt(fan_in) at run time), then
     FusedLeakyReLU(bias) or the plain bias."""
-    _, cin, kh, kw = p["w"].shape
-    y = F.conv2d(x, p["w"].to(x.dtype) * (1.0 / math.sqrt(cin * kh * kw)), stride=stride,
-                 padding=padding)
+    y = equal_conv2d({"w": p["w"].to(x.dtype)}, x, stride=stride, padding=padding)
     if activate:
         return fused_leaky_relu(y, bias)
     if bias is not None:

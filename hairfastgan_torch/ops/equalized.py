@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from hairfastgan_torch.ops.basic import fold_dtype
+from hairfastgan_torch.ops.basic import conv2d, fold_dtype
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 
 
@@ -20,6 +20,14 @@ def pixel_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     xf = x.to(fold_dtype(x))
     n = xf * torch.rsqrt(xf.square().mean(dim=dim, keepdim=True) + 1e-8)
     return n.to(x.dtype)
+
+
+def equal_conv2d(p, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """EqualConv2d (model.py:96-125) on NCHW: w OIHW scaled by
+    1/sqrt(cin*kh*kw) at run time, optional bias."""
+    _, cin, kh, kw = p["w"].shape
+    return conv2d(x, p["w"] * (1.0 / math.sqrt(cin * kh * kw)), p.get("b"), stride=stride,
+                  padding=padding)
 
 
 def equal_linear(p, x: torch.Tensor, lr_mul: float = 1.0,

@@ -81,11 +81,23 @@ def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
     kernel, one stride-2 transposed conv of a (kh+pk-1)^2 kernel in place of
     the conv and the blur's passes (4x the conv's MACs at pk=4).
     """
-    cout, cin, kh, kw = p["w"].shape
-    fan_scale = 1.0 / math.sqrt(cin * kh * kw)
     s = equal_linear(p["modulation"], style).to(x.dtype)  # [B, I]
+    return styled_conv2d(p["w"], x, s, demodulate=demodulate, up=up, down=down,
+                         blur_kernel=blur_kernel, fuse_blur=fuse_blur)
+
+
+def styled_conv2d(weight: torch.Tensor, x: torch.Tensor, s: torch.Tensor, *,
+                  demodulate: bool = True, up: bool = False, down: bool = False,
+                  blur_kernel: Tuple[int, ...] = (1, 3, 3, 1),
+                  fuse_blur: bool = False) -> torch.Tensor:
+    """The conv of `modulated_conv2d` given its style scales s [B, I] (the
+    modulation's output): weight OIHW. Every output channel reads only its
+    own kernel rows, so a slice of the output channels is this call on the
+    same slice of `weight` (parallel/tensor.py's column-parallel split)."""
+    cout, cin, kh, kw = weight.shape
+    fan_scale = 1.0 / math.sqrt(cin * kh * kw)
     xm = x * s[:, :, None, None]
-    w = p["w"].to(x.dtype) * fan_scale
+    w = weight.to(x.dtype) * fan_scale
     if up and fuse_blur:
         # the two-pass path is the lhs-dilated conv padded by k-1, then the
         # blur padded by (lo, hi); as the first conv's outer k-1 rows of
@@ -97,7 +109,7 @@ def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
                    padding=[(lo + kh - 1, hi + kh - 1), (lo + kw - 1, hi + kw - 1)],
                    lhs_dilation=2)
         if demodulate:
-            y = y * _demod_coeff(p["w"], s, fan_scale).to(x.dtype)[:, :, None, None]
+            y = y * _demod_coeff(weight, s, fan_scale).to(x.dtype)[:, :, None, None]
         return y
     if up:
         y = F.conv_transpose2d(xm, torch.flip(w, (2, 3)).transpose(0, 1), stride=2)
@@ -108,7 +120,7 @@ def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
     else:
         y = F.conv2d(xm, w, padding=kh // 2)
     if demodulate:
-        d = _demod_coeff(p["w"], s, fan_scale).to(x.dtype)
+        d = _demod_coeff(weight, s, fan_scale).to(x.dtype)
         y = y * d[:, :, None, None]
     if up:
         # reference Blur pad (model.py:204-210) with gain factor**2

@@ -20,3 +20,10 @@ def region_mean(feat: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
     cnt = onehot.float().sum(dim=(2, 3))
     out = s / torch.where(cnt > 0, cnt, torch.ones_like(cnt))[..., None]
     return torch.where((cnt > 0)[..., None], out, torch.zeros_like(out)).to(feat.dtype)
+
+
+def region_broadcast(codes: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Per-region vectors scattered back over the map: codes [B,K,C],
+    onehot [B,K,H,W] -> [B,C,H,W]; pixels of no region get 0 (ACE's
+    masked_scatter_ into zeros, normalization.py:119-154)."""
+    return torch.einsum("bkc,bkhw->bchw", codes, onehot.to(codes.dtype))

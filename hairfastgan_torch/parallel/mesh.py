@@ -23,27 +23,35 @@ a no-op on a repeated device) and counts the collective by kind in `MOVES`:
              sum back into the master leaves on the backward pass
   reduce     per-shard losses (and scalar aux values) summed, each weighted
              by its share of the batch, on the lead device
+  all_gather the model axis' slices of an activation concatenated on every
+             device of that axis (parallel/tensor.py's column-parallel
+             layers: their features and their styles)
 
 These counts stand in for the JAX tests' HLO collective counts
 (tests/test_mesh_equivalence.py): a data-parallel swap scatters its inputs
 and gathers its rows and does nothing else. One count is one call of
 `move`, whatever the number of shards.
+
+The model axis (`shard_params_model_axis`) places the JAX package's
+tensor-parallel split: the output features of the wide linears and the
+output channels of the wide conv kernels, one slice per model-axis device.
+`MeshPlan.spatial()` with `place` bands the H axis of an NHWC map.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from hairfastgan_torch.params.bridge import map_tree
+from hairfastgan_torch.params.bridge import map_tree, port_perm
 
 Tensor = torch.Tensor
 
-KINDS = ("scatter", "gather", "broadcast", "reduce")
+KINDS = ("scatter", "gather", "broadcast", "reduce", "all_gather")
 MOVES: collections.Counter = collections.Counter()  # kind -> calls of `move`
 
 
@@ -111,6 +119,41 @@ class MeshPlan:
     def distinct(self) -> List[torch.device]:
         """Each device of the mesh once, in mesh order."""
         return list(dict.fromkeys(self.devices.flat))
+
+    @property
+    def grid(self) -> np.ndarray:
+        """The devices as a (n_data, n_model) array (n_model 1 on a 1-D mesh)."""
+        return self.devices.reshape(self.devices.shape[0], -1)
+
+    def spatial(self) -> "Placement":
+        """The H axis (dim 1) of NHWC maps split over the model axis, or over
+        `data` on a 1-D mesh, replicated over the other axis (the JAX
+        package's P(None, axis, None, None)); `place` applies it."""
+        return Placement(self.model_axis or self.data_axis, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A tensor split into equal slices along `dim` over the mesh axis
+    `axis`: the device at position (i, j) holds slice i for `data` and
+    slice j for `model` (the counterpart of a NamedSharding)."""
+
+    axis: str
+    dim: int
+
+
+def place(plan: MeshPlan, x: Tensor, placement: Placement) -> List[Tensor]:
+    """`x` split as `placement` says, one slice per mesh position, in mesh
+    order (row-major over (data, model)), in one scatter."""
+    grid = plan.grid
+    n = plan.shape[placement.axis]
+    if x.shape[placement.dim] % n:
+        raise ValueError(f"dim {placement.dim} of {tuple(x.shape)} is not divisible by the "
+                         f"{n} devices of {placement.axis!r}")
+    parts = x.chunk(n, dim=placement.dim)
+    pos = np.ndindex(*grid.shape)
+    idx = [i if placement.axis == "data" else j for i, j in pos]
+    return move([parts[k] for k in idx], list(grid.flat), "scatter")
 
 
 def _device_array(devs, shape) -> np.ndarray:
@@ -241,3 +284,92 @@ def data_parallel(plan: MeshPlan, fn: Callable, in_batched: Sequence[bool]):
         return gather(outs, plan.lead)
 
     return call
+
+
+# -- the model axis ---------------------------------------------------------
+
+
+def _model_spec_for(key: Optional[str], shape: Sequence[int]) -> Optional[int]:
+    """The port dim that the JAX package's `_model_spec_for` splits over
+    the model axis, or None (replicated). The JAX rule reads JAX layouts
+    (HWIO conv kernels, [in, out] linears, the NHWC constant input): the
+    last dim of a rank-2 or rank-4 leaf when it is >= 512. It is applied
+    here to the leaf's JAX-layout shape (undoing `to_port`'s permutation,
+    keyed on the dict key and rank as `to_port` is) and the split dim is
+    mapped back, so a port linear [out, in] splits dim 0 and a port OIHW
+    kernel dim 0 (its output channels), never the square matrices' in
+    features. Leaves `to_port` leaves alone keep the JAX dim."""
+    ndim = len(shape)
+    perm = port_perm(key, ndim) or tuple(range(ndim))
+    jax_shape = [0] * ndim
+    for d, j in enumerate(perm):
+        jax_shape[j] = shape[d]
+    if ndim in (2, 4) and jax_shape[-1] >= 512:
+        return perm.index(ndim - 1)
+    return None
+
+
+def model_split_dims(params, n_model: int):
+    """The tree of `params` with each leaf's split dim over a model axis
+    of n_model devices, None where it stays replicated: `_model_spec_for`,
+    and a dim not divisible by n_model is replicated, as the JAX package's
+    shard_params_model_axis places it. Leaves need only a `shape`."""
+    return map_tree(params, lambda key, x: _split_dim(key, x, n_model))
+
+
+def _split_dim(key: Optional[str], x, n_model: int) -> Optional[int]:
+    d = _model_spec_for(key, tuple(x.shape))
+    return None if d is None or x.shape[d] % n_model else d
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelSharded:
+    """A parameter tree placed over the model axis of `plan`.
+
+    dims:  the tree's split dims (`model_split_dims`; None: replicated)
+    trees: an object array of the mesh grid's shape (n_data, n_model): the
+           tree that the device at each position holds, slice j of every
+           split leaf at model index j, the replicated leaves whole
+    """
+
+    plan: MeshPlan
+    dims: Any
+    trees: np.ndarray
+
+
+def shard_params_model_axis(plan: MeshPlan, params):
+    """Tensor-parallel placement of a parameter tree over the model axis
+    (counterpart of the JAX package's shard_params_model_axis): each split
+    leaf is cut into n_model slices on the device it lives on and slice j
+    is sent to every device of model index j (one scatter), so no device
+    holds a split leaf whole; the replicated leaves go to each distinct
+    device (one broadcast). Without a model axis: `replicate`, as JAX."""
+    if plan.model_axis is None:
+        return replicate(plan, params)
+    grid = plan.grid
+    n_data, n_model = grid.shape
+    leaves: List[Tensor] = []
+    flat_dims: List[Optional[int]] = []
+
+    def visit(key, t):
+        leaves.append(t)
+        flat_dims.append(_split_dim(key, t, n_model))
+        return flat_dims[-1]
+
+    dims = map_tree(params, visit)
+    split = [(t, d) for t, d in zip(leaves, flat_dims) if d is not None]
+    whole = [t for t, d in zip(leaves, flat_dims) if d is None]
+    pos = list(np.ndindex(n_data, n_model))
+    sliced = move([t.chunk(n_model, dim=d)[j] for i, j in pos for t, d in split],
+                  [grid[i, j] for i, j in pos for _ in split], "scatter")
+    devs = plan.distinct
+    copies = move([t for _ in devs for t in whole], [d for d in devs for _ in whole],
+                  "broadcast")
+    trees = np.empty((n_data, n_model), dtype=object)
+    for k, (i, j) in enumerate(pos):
+        mine = iter(sliced[k * len(split):(k + 1) * len(split)])
+        c = devs.index(grid[i, j])
+        rep = iter(copies[c * len(whole):(c + 1) * len(whole)])
+        ds = iter(flat_dims)
+        trees[i, j] = map_tree(params, lambda _, t: next(rep) if next(ds) is None else next(mine))
+    return ModelSharded(plan, dims, trees)

@@ -19,7 +19,7 @@ JAX: leaves are read through np.asarray, Static by duck typing.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,19 +28,26 @@ import torch
 _STACKED_LINEARS = ("lin_w", "styles_w", "fc_mu_w")
 
 
+def port_perm(key: Optional[str], ndim: int) -> Optional[Tuple[int, ...]]:
+    """The permutation `to_port` applies to a leaf of rank `ndim` under
+    dict key `key`: port dim d is JAX dim perm[d]; None leaves it as it is."""
+    if key == "w" and ndim == 4:
+        return (3, 2, 0, 1)
+    if key == "w" and ndim == 2:
+        return (1, 0)
+    if key == "w" and ndim == 5:
+        return (0, 4, 3, 1, 2)
+    if key in _STACKED_LINEARS and ndim == 3:
+        return (0, 2, 1)
+    if key == "input" and ndim == 4:
+        return (0, 3, 1, 2)
+    return None
+
+
 def to_port(key: Optional[str], t: torch.Tensor) -> torch.Tensor:
     """One leaf in JAX layout -> port layout (a view; callers copy)."""
-    if key == "w" and t.ndim == 4:
-        return t.permute(3, 2, 0, 1)
-    if key == "w" and t.ndim == 2:
-        return t.transpose(0, 1)
-    if key == "w" and t.ndim == 5:
-        return t.permute(0, 4, 3, 1, 2)
-    if key in _STACKED_LINEARS and t.ndim == 3:
-        return t.transpose(1, 2)
-    if key == "input" and t.ndim == 4:
-        return t.permute(0, 3, 1, 2)
-    return t
+    perm = port_perm(key, t.ndim)
+    return t if perm is None else t.permute(perm)
 
 
 def _is_static(leaf) -> bool:

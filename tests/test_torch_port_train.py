@@ -11,9 +11,24 @@ width 0.25, STAR at 2 stacks x 2 levels x 8 channels.
 
 Tolerances, stated once:
   * losses: 1e-5 relative (f32 sums in another order over a few hundred
-    ops; a wrong term, mask or stop-grad moves them by O(1));
+    ops: the f32 epsilon 6.0e-8 times ~170 sequential roundings; a wrong
+    term, mask or stop-grad moves them by O(1));
   * gradients: 1e-4 of the leaf's largest |grad| (backward sums in
-    another order; a wrong path moves them by O(scale));
+    another order, each op's backward a sum over its fan-out: the epsilon
+    times ~1,700 roundings; a wrong path moves them by O(scale));
+  * the rotate pose loss and the train step hold both packages' f32 runs
+    against one float64 reference, the port's own float64 run (the JAX
+    package folds norms and demodulation in f32 even for f64 inputs, so
+    it has no f64 path): the JAX run within the bounds above of it (the
+    reference is the JAX function), and the port's f32 gradient error at
+    most F32_RATIO = 2 times the JAX run's own (`f32_no_worse`). Held
+    against each other, the two f32 runs' errors add, and on some hosts
+    their sum crossed 1e-4 of scale. Measured ratios (x86 CPU, torch
+    2.13, jax 0.9): rotate pose 0.69 (injected keypoints) and 0.45
+    (STAR); train step 0.69 (clip off), 0.47 (clip on), 0.85 (blending).
+    The losses are scalars, one rounding each, so a ratio of two of them
+    says nothing; they keep the 1e-5 bound against the reference on each
+    side;
   * params after an Adam step: lr/5 absolute. Adam's m/(sqrt(v)+eps) turns
     the ULP noise of near-zero gradients into lr-sized steps of either sign
     (the reason tests/test_losses_train.py:248-250 gives), so the bound is
@@ -48,7 +63,7 @@ from hairfastgan_torch.models import star as tstar
 from hairfastgan_torch.models import stylegan2 as tsg
 from hairfastgan_torch.params import checkpoint as tckpt
 from hairfastgan_torch.params import convert as TC
-from hairfastgan_torch.params.bridge import bridge_zoo
+from hairfastgan_torch.params.bridge import bridge_zoo, map_tree
 from hairfastgan_torch.train import blending as tbl
 from hairfastgan_torch.train import common as tcommon
 from hairfastgan_torch.train import rotate as trot
@@ -89,6 +104,37 @@ def grads_close(got, ref, rel=GRAD_REL):
         assert g.shape == r.shape, i
         err = float((g.detach() - r).abs().max())
         assert err <= rel * scale, (i, err, scale)
+
+
+F32_RATIO = 2.0
+
+
+def d64(tree):
+    """A port tree (or a tuple of tensors) in float64."""
+    if isinstance(tree, tuple):
+        return tuple(t.double() for t in tree)
+    return map_tree(tree, lambda _, t: t.double())
+
+
+def grad_err(got, ref):
+    """The largest |got - ref| over all leaves, over the reference's largest |grad|."""
+    assert len(got) == len(ref)
+    scale = max(float(r.abs().max()) for r in ref)
+    assert scale > 0
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+    return max(float((g.detach().double() - r).abs().max()) for g, r in zip(got, ref)) / scale
+
+
+def f32_no_worse(port32, jax32, ref64, rel=GRAD_REL):
+    """The f32 gradients of both packages against the port's float64 run:
+    the JAX package's within `rel` of the largest |grad| (the reference
+    computes the JAX function), the port's error at most F32_RATIO times
+    the JAX package's own. Returns the ratio."""
+    e_jax, e_port = grad_err(jax32, ref64), grad_err(port32, ref64)
+    assert e_jax <= rel, (e_jax, rel)
+    assert e_port <= F32_RATIO * e_jax, (e_port, e_jax)
+    return e_port / e_jax
 
 
 def port_grads(loss_fn, params):
@@ -249,23 +295,31 @@ def test_blending_latent_rows_0_5_are_zero(blend_setup, monkeypatch):
 
 @pytest.mark.parametrize("kp", sorted(KEYPOINT_FNS))
 def test_rotate_pose_loss_and_grads_match_jax(rotate_setup, kp):
+    """The pose loss (with MAL multipliers and raw) and its gradients: both
+    packages' f32 runs against the port's float64 run (`f32_no_worse`)."""
     jfrozen, jparams, batch = rotate_setup
     jkp, tkp = KEYPOINT_FNS[kp]
     frozen, params = bridge_zoo(jfrozen), bridge_zoo(jparams)
     mults = (0.7, 1.3)
     loss, aux, grads = port_grads(
         lambda p: trot.rotate_pose_loss(p, frozen, tb(batch), tkp, TCFG, mults=mults), params)
+    ref, raux, rgrads = port_grads(
+        lambda p: trot.rotate_pose_loss(p, d64(frozen), d64(tb(batch)), tkp, TCFG, mults=mults),
+        d64(params))
     jloss, jaux, jgrads = jax_grads(
         lambda p: jrot.rotate_pose_loss(p, jfrozen, batch, jkp, JCFG,
                                         mults=jnp.asarray(mults)), jparams)
-    rel_close(loss, jloss, LOSS_REL)
+    for got in (loss, jloss):
+        rel_close(got, ref, LOSS_REL)
     for k in ("mse_points", "arc_face"):
-        rel_close(aux[k], jaux[k], LOSS_REL)
-    assert float(aux["arc_face"]) > 1e-3  # the identity term is alive
-    grads_close(grads, jgrads)
+        for got in (aux[k], jaux[k]):
+            rel_close(got, raux[k], LOSS_REL)
+    assert float(raux["arc_face"]) > 1e-3  # the identity term is alive
+    f32_no_worse(grads, jgrads, rgrads)
     with torch.no_grad():  # raw sums (validation): mults=None
-        raw = trot.rotate_pose_loss(params, frozen, tb(batch), tkp, TCFG)[0]
-    rel_close(raw, jrot.rotate_pose_loss(jparams, jfrozen, batch, jkp, JCFG)[0], LOSS_REL)
+        raw = trot.rotate_pose_loss(d64(params), d64(frozen), d64(tb(batch)), tkp, TCFG)[0]
+        rel_close(trot.rotate_pose_loss(params, frozen, tb(batch), tkp, TCFG)[0], raw, LOSS_REL)
+    rel_close(jrot.rotate_pose_loss(jparams, jfrozen, batch, jkp, JCFG)[0], raw, LOSS_REL)
 
 
 def test_rotate_render_matches_jax(rotate_setup):
@@ -361,37 +415,49 @@ def _hair_case(mult):
 def test_train_step_matches_optax(case, rotate_setup, blend_setup):
     """One step of make_train_step + adam_with_clip against the JAX step:
     loss, pre-clip grad_norm, each gradient and the params after Adam, with
-    the global clip inactive (||g|| < 5) and active (||g|| > 5)."""
+    the global clip inactive (||g|| < 5) and active (||g|| > 5). The
+    gradients of both packages' f32 runs are held against the port's
+    float64 run (`f32_no_worse`), the steps each against the port's
+    float64 step."""
     if case == "blending":
         jfrozen, jparams, batch = blend_setup
         frozen = bridge_zoo(jfrozen)
         tstep, _ = tbl.make_blending_train_step(frozen, TCFG, lr=LR)
+        tstep64, _ = tbl.make_blending_train_step(d64(frozen), TCFG, lr=LR)
         jstep, jtx = jbl.make_blending_train_step(jfrozen, JCFG, lr=LR)
         tloss = lambda p: tbl.blending_loss(p, frozen, tb(batch), TCFG)  # noqa: E731
+        tloss64 = lambda p: tbl.blending_loss(p, d64(frozen), d64(tb(batch)), TCFG)  # noqa: E731
         jloss = lambda p: jbl.blending_loss(p, jfrozen, batch, JCFG)  # noqa: E731
     else:
         _, jparams, batch = rotate_setup
         batch = batch[2:]
         tfn, jfn = _hair_case(0.05 if case == "hair_clip_off" else 5e2)
         tstep = tcommon.make_train_step(tfn, tcommon.adam_with_clip(LR))
+        tstep64 = tstep
         jtx = jcommon.adam_with_clip(LR)
         jstep = jcommon.make_train_step(jfn, jtx, donate=False)
         tloss = lambda p: tfn(p, *tb(batch))  # noqa: E731
+        tloss64 = lambda p: tfn(p, *d64(tb(batch)))  # noqa: E731
         jloss = lambda p: jfn(p, *batch)  # noqa: E731
     params = bridge_zoo(jparams)
     _, _, grads = port_grads(tloss, params)
+    _, _, rgrads = port_grads(tloss64, d64(params))
     _, _, jgrads = jax_grads(jloss, jparams)
-    grads_close(grads, jgrads)
+    f32_no_worse(grads, jgrads, rgrads)
 
     tx = tcommon.adam_with_clip(LR)
-    opt = tx.init(params)
-    params, opt, aux = tstep(params, opt, *tb(batch))
+    p64 = d64(params)
+    p64, _, raux = tstep64(p64, tx.init(p64), *d64(tb(batch)))
+    params, opt, aux = tstep(params, tx.init(params), *tb(batch))
     jp1, _, jaux = jstep(jparams, jtx.init(jparams), *batch)
-    rel_close(aux["loss"], jaux["loss"], LOSS_REL)
-    rel_close(aux["grad_norm"], jaux["grad_norm"], GRAD_REL)
-    assert (float(jaux["grad_norm"]) > 5.0) == (case == "hair_clip_on")
-    for got, ref in zip(tensor_leaves(params), tensor_leaves(bridge_zoo(jp1))):
-        np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), atol=LR / 5, rtol=0)
+    for got in (aux, jaux):
+        rel_close(got["loss"], raux["loss"], LOSS_REL)
+        rel_close(got["grad_norm"], raux["grad_norm"], GRAD_REL)
+    assert (float(raux["grad_norm"]) > 5.0) == (case == "hair_clip_on")
+    for got in (params, bridge_zoo(jp1)):
+        for a, b in zip(tensor_leaves(got), tensor_leaves(p64)):
+            np.testing.assert_allclose(a.detach().double().numpy(), b.detach().numpy(),
+                                       atol=LR / 5, rtol=0)
     assert all(t.grad is None for t in tensor_leaves(params))
 
 

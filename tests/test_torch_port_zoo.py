@@ -167,6 +167,7 @@ import hairfastgan_torch.scripts.align_faces, hairfastgan_torch.scripts.parity_h
 import hairfastgan_torch.scripts.upload_res_agreement
 import hairfastgan_torch.train.datagen, hairfastgan_torch.losses
 import hairfastgan_torch.parallel.mesh, hairfastgan_torch.parallel.spatial
+import hairfastgan_torch.parallel.tensor
 from hairfastgan_torch.train.blending import make_blending_train_step
 from hairfastgan_torch.train.pp import make_pp_train_steps
 from hairfastgan_torch.zoo import (blending_train_tiny, init_discriminator, init_micro_zoo,
@@ -197,6 +198,15 @@ from hairfastgan_torch.eval.fid import inception_feature_fn
 from hairfastgan_torch.models.inception import init_inception
 feats = inception_feature_fn(init_inception(0))(rng.random((1, 32, 32, 3), dtype=np.float32))
 assert feats.shape == (1, 2048) and np.isfinite(feats).all()
+from hairfastgan_torch.config import StyleGANConfig
+from hairfastgan_torch.models import stylegan2
+from hairfastgan_torch.parallel import mesh, tensor
+from hairfastgan_torch.zoo import fill_random
+sg = StyleGANConfig(size=16)
+tp = mesh.shard_params_model_axis(mesh.make_mesh(1, 2, devices=[torch.device("cpu")] * 2),
+                                  fill_random(stylegan2.init_generator_params(sg), 0))
+img = tensor.generate(tp, torch.full((2, sg.n_latent, 512), 0.1), cfg=sg)
+assert img.shape == (2, 16, 16, 3) and mesh.MOVES["all_gather"] > 0
 left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
 assert not left, left
 print("SWAPPED", out.shape, "STEPPED")
@@ -207,8 +217,8 @@ def test_port_runs_with_jax_blocked():
     """With jax and the JAX package unimportable, the port's entry points
     (the training and evaluation scripts included) import, and a micro
     swap, a --tiny blending train step, a --micro PostProcess step with the
-    discriminator and InceptionV3 features run on the CPU, in a fresh
-    interpreter."""
+    discriminator, InceptionV3 features and a column-parallel render on a
+    (1, 2) mesh run on the CPU, in a fresh interpreter."""
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
                          timeout=300, cwd=PORT.parent)
     assert res.returncode == 0, res.stderr[-3000:]
