@@ -81,6 +81,12 @@ Phases (any failure exits nonzero and prints no result line):
      twice the unsharded bf16 render's own), the exact all_gather counts,
      MeshPlan.spatial()'s H bands, and bf16 p50 and peak memory beside the
      unsharded render's (the math, not multi-card speed)
+ 18. model_axis_swap: the whole swap at B=2 on phase 4's f32 zoo placed on
+     the model axis of (1, 2) and (2, 2) meshes of the one card repeated:
+     f32 against the one-device swap (1e-3 of max |y|) and HM_X's labels,
+     2 kernel launches per swap at shapes phase 3 checked, moves per swap
+     by kind (bf16 the same as f32), bf16 p50 in turns beside the unsharded
+     swap, peak memory
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -2844,6 +2850,132 @@ def phase_model_axis(device, card: str) -> dict:
     return out
 
 
+MODEL_AXIS_SWAP_MESHES = ((1, 2), (2, 2))
+
+
+def phase_model_axis_swap(hf, zoo32, device, card: str) -> dict:
+    """The whole swap on a model-axis zoo at full width: phase 4's f32 zoo
+    (its generator, BiSeNet and shape adaptor by their init laws, as phase
+    16's label checks need) placed by shard_params_model_axis on (1, 2) and
+    (2, 2) meshes of the one card repeated ([cuda:0] * n: the math, not
+    multi-card speed), and pipeline.swap.hair_fast run on it at B=2: every
+    model column-parallel (parallel/tensor.py), the glue and the kernel on
+    the lead device. f32 at zero noise (TF32 off) against the one-device
+    swap within 1e-3 of max |y|, HM_X's hair labels against the one
+    device's; the kernel's launches (2 per swap, at shapes phase 3 checked);
+    the moves per swap by kind, bf16 the same as f32; bf16 p50 in turns
+    beside the unsharded swap (CUDA events), the peak memory of one swap
+    above what is resident, and device events, busy time and idle share
+    per swap (torch.profiler)."""
+    import torch
+
+    from hairfastgan_torch.parallel import mesh
+    from hairfastgan_torch.pipeline.swap import hair_fast
+    from hairfastgan_torch.scripts import fastpath_agreement
+    from hairfastgan_torch.scripts.upload_res_agreement import BISENET_SEED, scaled_bisenet
+    from hairfastgan_torch.zoo import cast_zoo
+
+    cfg = hf.cfg
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    size = cfg.stylegan.size
+    zoo32 = dict(zoo32, generator=fastpath_agreement.scaled_generator(cfg.stylegan, 0, device),
+                 bisenet=scaled_bisenet(BISENET_SEED, device),
+                 shape_adaptor=_scaled_shape_adaptor(0, device))
+    zoo16 = cast_zoo(zoo32, torch.bfloat16)
+    rng = np.random.default_rng(19)
+    trip = [torch.from_numpy(rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)).to(device)
+            for _ in range(3)]
+    plans = {"x".join(map(str, m)): mesh.make_mesh(*m, devices=[device] * (m[0] * m[1]))
+             for m in MODEL_AXIS_SWAP_MESHES}
+
+    def moves():
+        return {k: v for k, v in mesh.MOVES.items() if v}
+
+    out = {"f32": {}, "moves": {}, "moves_bf16": {}, "launches": {}}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref, ref_inter = hair_fast(zoo32, *trip, cfg=cfg32, dtype=torch.float32,
+                                       return_intermediate=True)
+            scale = float(ref.abs().max())
+            hair = float(ref_inter["HM_X"].mean())
+            for name, plan in plans.items():
+                tp = mesh.shard_params_model_axis(plan, zoo32)
+                mesh.MOVES.clear()
+                got, inter = counted(f"model_axis_swap {name} f32", lambda: hair_fast(
+                    tp, *trip, cfg=cfg32, dtype=torch.float32, return_intermediate=True),
+                    at_least=2)
+                err = float((got - ref).abs().max())
+                agree = float((inter["HM_X"] == ref_inter["HM_X"]).float().mean())
+                out["f32"][name] = (err, agree)
+                out["moves"][name] = moves()
+                out["launches"][name] = LAUNCHES[f"model_axis_swap {name} f32"]
+                log(f"[model_axis_swap] {name} mesh on [{device}] * {plan.devices.size}, B=2 "
+                    f"f32 zero noise (TF32 off) vs the one-device swap: max |diff| {err:.3e} of "
+                    f"max |y| {scale:.4f} (limit 1e-3 of it); HM_X hair labels agree on "
+                    f"{agree:.6f} of the pixels (hair share {hair:.4f}); moves per swap "
+                    f"{out['moves'][name]}; dilate_erode launches {out['launches'][name]}  "
+                    f"[{card}]")
+                if not err <= 1e-3 * scale or agree < 0.999 or out["launches"][name] != 2:
+                    raise AssertionError(f"model-axis swap {name}: |diff| {err} of {scale}, "
+                                         f"HM_X agreement {agree}, launches "
+                                         f"{out['launches'][name]}")
+            if not 0.0 < hair < 1.0:
+                raise AssertionError(f"the f32 swap's target hair share is {hair}")
+            del ref, ref_inter, got, inter, tp
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    # bf16 B=2 swaps in turns (order reversed every other round), p50 by
+    # CUDA events; peak memory of one swap above what is resident
+    swaps = {"unsharded": lambda: hair_fast(zoo16, *trip, cfg=cfg, dtype=torch.bfloat16)}
+    for name, plan in plans.items():
+        swaps[name] = (lambda tp: lambda: hair_fast(tp, *trip, cfg=cfg, dtype=torch.bfloat16))(
+            mesh.shard_params_model_axis(plan, zoo16))
+    times = {k: [] for k in swaps}
+    peak = {}
+    with torch.inference_mode():
+        for k, fn in swaps.items():
+            mesh.MOVES.clear()
+            path = "model_axis_swap" if k == "1x2" else f"model_axis_swap {k} bf16"
+            counted(path, fn, at_least=2)
+            if LAUNCHES[path] != 2:
+                raise AssertionError(f"bf16 {k} swap launched the kernel {LAUNCHES[path]} times")
+            if k != "unsharded":
+                out["moves_bf16"][k] = moves()
+                if out["moves_bf16"][k] != out["moves"][k]:
+                    raise AssertionError(f"bf16 {k} swap moves {out['moves_bf16'][k]}, f32 "
+                                         f"{out['moves'][k]}: a cast gathered apart from its "
+                                         "source")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn()
+            torch.cuda.synchronize()
+            peak[k] = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+        for r in range(8):
+            for k in (list(swaps) if r % 2 == 0 else list(swaps)[::-1]):
+                times[k].append(cuda_ms(swaps[k], 1))
+        prof = {k: _profiled(fn, 1) for k, fn in swaps.items()}
+    out["p50"] = {k: statistics.median(v) for k, v in times.items()}
+    out["peak_gib"], out["scale"], out["hair"] = peak, scale, hair
+    out["events"] = {k: v[0] for k, v in prof.items()}
+    out["idle"] = {k: 1.0 - prof[k][1] / out["p50"][k] for k in swaps}
+    log(f"[model_axis_swap] hair_fast bf16 B=2 1024^2 p50 of 8 (CUDA events, in turns; one "
+        f"card: every position's work runs on it, so this reads the math's cost, not "
+        f"multi-card speed): " + ", ".join(
+            f"{k} {out['p50'][k]:.2f} ms (min {min(times[k]):.2f}, max {max(times[k]):.2f}; "
+            f"peak {peak[k]:.3f} GiB; {prof[k][0]:.0f} device events, busy {prof[k][1]:.2f} "
+            f"ms, idle share {out['idle'][k]:.3f})" for k in swaps) + f"; moves per bf16 swap "
+        f"{out['moves_bf16']} (the f32 swap's: a cast of a slice is gathered through its "
+        f"source); dilate_erode launches per swap {LAUNCHES['model_axis_swap']} (1x2)  "
+        f"[{card}]")
+    del swaps, zoo16, zoo32
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tree_values(tree) -> list:
     """The leaves of a nested dict / list tree, Nones and ints included (a
     split-dims tree), in order."""
@@ -2904,6 +3036,7 @@ def main() -> int:
     par = phase("parallel", phase_parallel, hf, zoo32, device, card)
     fast = phase("fastpaths", phase_fastpaths, hf, zoo32, imgs, device, card)
     tp = phase("model_axis", phase_model_axis, device, card)
+    mas = phase("model_axis_swap", phase_model_axis_swap, hf, zoo32, device, card)
     del zoo32
     unchecked = SEEN - CHECKED
     if unchecked:
@@ -2974,6 +3107,18 @@ def main() -> int:
         + f" of max |y| {tp['scale']:.3f}; bf16 mean |diff| " + ", ".join(
             f"{k} {m['bf16_mean']:.3e}" for k, m in tp["meshes"].items())
         + f" (unsharded {tp['bf16_own']:.3e})  [{card}]")
+    log(f"[summary] model_axis_swap (one card repeated): hair_fast bf16 B=2 p50 "
+        + ", ".join(f"{k} {v:.2f} ms ({mas['peak_gib'][k]:.3f} GiB)"
+                    for k, v in mas["p50"].items())
+        + "; f32 max |diff| vs one device " + ", ".join(
+            f"{k} {e[0]:.2e}" for k, e in mas["f32"].items())
+        + f" of max |y| {mas['scale']:.4f}; HM_X agreement " + ", ".join(
+            f"{k} {e[1]:.6f}" for k, e in mas["f32"].items())
+        + "; moves per swap f32 / bf16 " + ", ".join(
+            f"{k} {v} / {mas['moves_bf16'][k]}" for k, v in mas["moves"].items())
+        + "; device events / idle share " + ", ".join(
+            f"{k} {mas['events'][k]:.0f} / {mas['idle'][k]:.3f}" for k in mas["events"])
+        + f"; dilate_erode launches per swap {LAUNCHES['model_axis_swap']}  [{card}]")
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                       or m.startswith("hairfastgan_tpu"))
     if jax_like:

@@ -5,6 +5,7 @@ features, global context, feature fusion against 1/8, and the 3x3+1x1 main
 head bilinearly upsampled (align_corners=True) to the input size. Labels
 come out in the 19-class CelebAMask order (hair = 13): the argmax runs over
 the channel-permuted logits. NCHW inside; public functions take NHWC.
+`segment_256_nchw` also takes a model-axis tree (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from hairfastgan_torch.models.layers import init_bn, init_conv, init_conv_bn
 from hairfastgan_torch.ops.basic import avg_pool_global, batch_norm, conv2d_p
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.resample import resize
 
 Tensor = torch.Tensor
@@ -158,6 +160,7 @@ def parse_to_celeba(p, img01: Tensor) -> Tensor:
     return parse_to_celeba_nchw(p, img01.permute(0, 3, 1, 2))
 
 
+@column_parallel
 def segment_256_nchw(p, img01: Tensor) -> Tensor:
     labels = parse_to_celeba_nchw(p, img01)
     return resize(labels, (256, 256), "nearest")

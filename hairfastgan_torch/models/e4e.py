@@ -5,7 +5,8 @@ indices 6/20/23, GradualStyleBlock heads (coarse 0-2 from c3, middle 3-6
 from p2, fine 7.. from p1), w0 broadcast + per-layer deltas + latent_avg.
 `pack_style_heads` (opt-in, through zoo.pack_zoo) re-lays the heads out
 per FPN group; the forward dispatches on the layout it gets. NCHW inside;
-`e4e_encode` takes NHWC.
+`e4e_encode` takes NHWC. `e4e_encode_nchw` and `gradual_style_encode` also
+take a model-axis tree (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from hairfastgan_torch.models.layers import (init_bn, init_conv, init_conv_bn,
                                              init_prelu, spec)
 from hairfastgan_torch.ops.basic import avg_pool_global, batch_norm, conv2d_p, prelu
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.equalized import equal_linear
 from hairfastgan_torch.ops.resample import resize
 
@@ -189,6 +191,7 @@ def init_e4e(n_styles: int = 18, se: bool = True, width: float = 1.0):
             "latent_avg": spec(n_styles, 512)}
 
 
+@column_parallel
 def e4e_encode_nchw(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     c1, c2, c3 = irse_pyramid(p["backbone"], x)
     lat = _all_style_latents(p, c1, c2, c3)  # [B, n, 512]: w0 then deltas
@@ -198,6 +201,7 @@ def e4e_encode_nchw(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     return w
 
 
+@column_parallel
 def gradual_style_encode(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     """The pSp GradualStyleEncoder variant (psp_encoders.py:57-123) on the
     e4e tree (init_e4e): x NHWC [B,256,256,3] in [-1,1] -> W+ [B,n,512],

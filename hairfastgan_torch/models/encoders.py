@@ -7,7 +7,8 @@ All are stacks of ModulationModule, a FiLM block:
     gamma/beta = Linear -> LayerNorm -> LeakyReLU(0.01) -> Linear
     (+ LeakyReLU(0.01) after every block but the last)
 PixelNorm runs over dim=1, the rows of [B, rows, 512]. Image arguments are
-NHWC, in [-1, 1].
+NHWC, in [-1, 1]. The three models also take a model-axis tree
+(parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from hairfastgan_torch.models import iresnet
 from hairfastgan_torch.models.clip_vit import clip_encode_image_nchw, clip_preprocess_nchw
 from hairfastgan_torch.models.layers import init_linear, mlp_ln_lrelu
 from hairfastgan_torch.ops.basic import layer_norm, linear
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.equalized import pixel_norm
 from hairfastgan_torch.ops.resample import resize
 
@@ -54,6 +56,7 @@ def init_rotate_model():
     return {"mods": [init_modulation_module() for _ in range(5)]}
 
 
+@column_parallel
 def rotate_model(p, latent_from: Tensor, latent_to: Tensor) -> Tensor:
     """W[:, :6] of (shape source, face target) -> rotated W[:, :6]."""
     dt = modulation_stack(p["mods"], pixel_norm(latent_from, dim=1), latent_to)
@@ -75,6 +78,7 @@ def clip_image_embed(clip_params, img_norm: Tensor) -> Tensor:
     return clip_image_embed_nchw(clip_params, img_norm.permute(0, 3, 1, 2))
 
 
+@column_parallel
 def blending_model(p, latent_face: Tensor, latent_color: Tensor,
                    target_face: Tensor, hair_color: Tensor) -> Tensor:
     """S1[:,6:], S3[:,6:], masked face image, masked color image (NHWC,
@@ -135,6 +139,7 @@ def post_process_model_train(p, source: Tensor, target: Tensor,
     return s_final, iresnet.feature_iresnet(p["to_feature"], cat_f)
 
 
+@column_parallel
 def post_process_model(p, source: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """(I_face_norm256, I_blend_norm256), NHWC -> (S_final [B,n,512],
     F_final NHWC [B,64,64,512]); one batched trunk pass for both images."""

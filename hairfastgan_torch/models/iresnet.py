@@ -6,7 +6,7 @@ IBasicBlock: out = bn3(conv2_s(prelu(bn2(conv1(bn1(x)))))) + downsample(x).
 stage features + content maps); `feature_iresnet` is the PostProcess
 F-fuser. `pack_fs_styles` (opt-in, through zoo.pack_zoo) stacks the style
 heads into one product. NCHW inside; the public functions take and return
-NHWC maps.
+NHWC maps. `fs_encode_nchw` also takes a model-axis tree (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from hairfastgan_torch.models.layers import (init_bn, init_conv, init_conv_bn,
                                              init_linear, init_prelu)
 from hairfastgan_torch.ops.basic import batch_norm, conv2d_p, linear, prelu
+from hairfastgan_torch.ops.columns import column_parallel
 
 Tensor = torch.Tensor
 
@@ -139,6 +140,7 @@ def pack_fs_styles(p):
     return q
 
 
+@column_parallel
 def fs_encode_nchw(p, x: Tensor) -> Tuple[Tensor, List[Tensor]]:
     feats = trunk_features(p["trunk"], x)
     src = feats[1] if max(p["fs_layers"]) > 7 else feats[2]

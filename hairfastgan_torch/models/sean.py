@@ -12,7 +12,7 @@
 
 Spectral norm is already baked into the weights by the converter. NCHW
 inside; `sean_encode`/`sean_decode` take NHWC images and [B,H,W] labels and
-return NHWC.
+return NHWC, and a model-axis tree too (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from hairfastgan_torch.models.layers import init_bn, init_conv, init_linear, spec
 from hairfastgan_torch.ops.basic import batch_norm, conv2d, conv2d_p, instance_norm
+from hairfastgan_torch.ops.columns import by_columns, column_parallel, randn_rows
 from hairfastgan_torch.ops.resample import resize
 from hairfastgan_torch.ops.segops import one_hot_mask, region_mean
 
@@ -82,6 +83,7 @@ def spade_gamma_beta(p, seg: Tensor) -> Tuple[Tensor, Tensor]:
     return conv2d_p(p["gamma"], a, padding=1), conv2d_p(p["beta"], a, padding=1)
 
 
+@by_columns
 def _region_conv(conv_p, mu: Tensor, seg: Tensor) -> Tensor:
     """conv3x3(region_broadcast(mu)) without materializing the broadcast map.
 
@@ -107,8 +109,8 @@ def ace(p, x: Tensor, seg_onehot: Tensor, style_codes: Optional[Tensor],
     """ACE forward (normalization.py:108-191) on NCHW. No generator means
     zero noise; with one, fresh gaussian noise scaled by noise_var."""
     if generator is not None:
-        z = torch.randn((x.shape[0], 1, x.shape[2], x.shape[3]), generator=generator,
-                        device=x.device).to(x.dtype)
+        z = randn_rows((x.shape[0], 1, x.shape[2], x.shape[3]), generator,
+                       x.device).to(x.dtype)
         x = x + z * p["noise_var"].to(x.dtype).view(1, -1, 1, 1)
     normalized = batch_norm(p["bn"], x)
     seg = resize(seg_onehot, tuple(x.shape[-2:]), "nearest")
@@ -208,6 +210,7 @@ def pack_sean(p):
     return q
 
 
+@column_parallel
 def sean_encode(p, img: Tensor, labels: Tensor) -> Tensor:
     """encode_sean (pix2pix_model.py:299-306): NHWC image + [B,H,W] labels
     -> [B,19,512] region codes."""
@@ -215,6 +218,7 @@ def sean_encode(p, img: Tensor, labels: Tensor) -> Tensor:
     return zencoder_codes(p["zencoder"], img.permute(0, 3, 1, 2), onehot)
 
 
+@column_parallel
 def sean_decode(p, style_codes: Tensor, target_labels: Tensor,
                 generator: Optional[torch.Generator] = None) -> Tensor:
     """decode_sean (pix2pix_model.py:309-325): render codes under a new mask

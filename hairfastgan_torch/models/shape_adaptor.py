@@ -7,6 +7,8 @@ Linear (the hair encoder's VAE returns its mean); MaskDecoder: Linear ->
 logits and the hair logit at HAIR_IDX=13, argmax over 19. The 'ln' norm is
 CtrlHair's per-sample LayerNorm over (C,H,W) with torch's UNBIASED std and
 eps added to the std. Functions take and return [B,256,256] int labels.
+`get_face_code`, `get_hair_code` and `get_new_shape` also take a model-axis
+tree (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from hairfastgan_torch.models.layers import init_conv, init_linear, spec
 from hairfastgan_torch.ops.basic import conv2d_p, linear
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.segops import one_hot_mask
 
 Tensor = torch.Tensor
@@ -123,6 +126,7 @@ def init_shape_adaptor(hidden: int = 32):
     }
 
 
+@column_parallel
 def get_face_code(p, labels256: Tensor) -> Tensor:
     """labels [B,256,256] -> face code [B,1024] (the 18 non-hair channels).
     The one-hot masks are f32 whatever the compute dtype, as in the JAX
@@ -132,6 +136,7 @@ def get_face_code(p, labels256: Tensor) -> Tensor:
     return mask_encode(p["face_encoder"], face)
 
 
+@column_parallel
 def get_hair_code(p, labels256: Tensor) -> Tensor:
     """labels [B,256,256] -> hair code [B,16] (VAE mean, test path)."""
     onehot = one_hot_mask(labels256, N_CLASSES)
@@ -145,6 +150,7 @@ def get_hair_face_code(p, labels256: Tensor) -> Tuple[Tensor, Tensor]:
     return get_face_code(p, labels256), get_hair_code(p, labels256)
 
 
+@column_parallel
 def get_new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:
     """codes [B,1024] x [k*B,16] -> recombined 19-class labels [k*B,256,256]
     (solver.py:259-262); argmax of the logits == argmax of their softmax.

@@ -9,16 +9,18 @@ Noise maps: pair l uses noise[2l-1], noise[2l] (pair 0 uses noise[0]).
 
 `synthesis` keeps the JAX signature layouts (layer_in, noise maps and the
 returned maps are NHWC) and runs NCHW inside. Its compute dtype is an
-explicit argument: the latent and layer_in are cast to it.
+explicit argument: the latent and layer_in are cast to it. `mapping` and
+`synthesis_nchw` also take a model-axis tree (parallel/tensor.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from hairfastgan_torch.models.layers import spec
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.equalized import equal_linear, pixel_norm
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 from hairfastgan_torch.ops.modconv import modulated_conv2d
@@ -82,6 +84,7 @@ def zero_noise(cfg, batch: int = 1, device=None) -> List[Tensor]:
     return [torch.zeros((batch, r, r, 1), device=device) for r in noise_resolutions(cfg)]
 
 
+@column_parallel
 def mapping(params, z: Tensor, cfg) -> Tensor:
     """z [B, style_dim] -> w through PixelNorm + n_mlp EqualLinear(fused_lrelu,
     lr_mul cfg.lr_mlp) over params["style"]."""
@@ -108,60 +111,24 @@ def latent_to_wplus(w: Tensor, n_latent: int = 18) -> Tensor:
 
 def _styled_conv(p, x: Tensor, style: Tensor, noise: Optional[Tensor], *,
                  up: bool = False) -> Tensor:
+    """StyledConv: the modulated conv, then noise, bias and sqrt(2) * lrelu,
+    each per output channel."""
     y = modulated_conv2d(p["conv"], x, style, demodulate=True, up=up)
-    return styled_conv_tail(y, p["noise_weight"], p["bias"], noise)
-
-
-def styled_conv_tail(y: Tensor, noise_weight: Tensor, bias: Tensor,
-                     noise: Optional[Tensor]) -> Tensor:
-    """StyledConv after its conv: noise, bias and sqrt(2) * lrelu, each per
-    output channel (`bias` holds y's channels)."""
     if noise is not None:
-        y = y + noise_weight.to(y.dtype) * noise.to(y.dtype)
-    return fused_leaky_relu(y, bias)
+        y = y + p["noise_weight"].to(y.dtype) * noise.to(y.dtype)
+    return fused_leaky_relu(y, p["bias"])
 
 
 def _to_rgb(p, x: Tensor, style: Tensor, skip: Optional[Tensor] = None) -> Tensor:
+    """ToRGB: the 1x1 modulated conv, its bias and the upsampled skip."""
     y = modulated_conv2d(p["conv"], x, style, demodulate=False)
-    return to_rgb_tail(y, p["bias"], skip)
-
-
-def to_rgb_tail(y: Tensor, bias: Tensor, skip: Optional[Tensor]) -> Tensor:
-    """ToRGB after its conv: bias and the upsampled skip."""
-    y = y + bias.to(y.dtype).view(1, -1, 1, 1)
+    y = y + p["bias"].to(y.dtype).view(1, -1, 1, 1)
     if skip is not None:
         y = y + upsample2d(skip)
     return y
 
 
-def walk_synthesis(x: Any, skip: Any, *, start_layer: int, end_layer: int, cfg,
-                   styled_conv: Callable, to_rgb: Callable) -> Tuple[Any, Any]:
-    """The synthesis schedule, in one place for every placement: `x` is
-    the input of the first conv (the constant at pair 0, else the features
-    entering pair `start_layer`) and `skip` the ToRGB skip entering it (a
-    start at pair 0 begins a new chain). styled_conv(path, x, k, up) and
-    to_rgb(path, x, k, skip) run the layer at `path` of the parameters with
-    style (and noise) index k; returns the last (features, skip)."""
-    out = None
-    if start_layer == 0:
-        out = x = styled_conv(("conv1",), x, 0, False)
-        skip = to_rgb(("to_rgb1",), out, 1, None)
-    if end_layer == 0:
-        return out, skip
-    for pair in range(max(start_layer, 1), min(end_layer, cfg.log_size - 2) + 1):
-        i = 2 * pair - 1
-        h = styled_conv(("convs", 2 * pair - 2), x, i, True)
-        out = x = styled_conv(("convs", 2 * pair - 1), h, i + 1, False)
-        skip = to_rgb(("to_rgbs", pair - 1), out, i + 2, skip)
-    return out, skip
-
-
-def _at(params, path: Sequence):
-    for k in path:
-        params = params[k]
-    return params
-
-
+@column_parallel
 def synthesis_nchw(params, latent: Tensor, *, noise: Sequence[Optional[Tensor]],
                    start_layer: int = 0, end_layer: int = 8,
                    layer_in: Optional[Tensor] = None, skip: Optional[Tensor] = None, cfg,
@@ -169,17 +136,24 @@ def synthesis_nchw(params, latent: Tensor, *, noise: Sequence[Optional[Tensor]],
     """The synthesis loop on NCHW maps; `noise` is a list of num_layers
     NCHW maps or Nones. `skip` is the ToRGB skip that enters pair
     `start_layer` (None starts the chain there), as the JAX package's; a
-    start at pair 0 begins a new chain."""
+    start at pair 0 begins a new chain. Returns the last pair's (features,
+    skip)."""
     latent = latent.to(dtype)
+    out = None
     if start_layer == 0:
         x = params["input"].to(dtype).expand(latent.shape[0], -1, -1, -1)
+        out = x = _styled_conv(params["conv1"], x, latent[:, 0], noise[0])
+        skip = _to_rgb(params["to_rgb1"], out, latent[:, 1])
     else:
         x = None if layer_in is None else layer_in.to(dtype)
-    return walk_synthesis(
-        x, skip, start_layer=start_layer, end_layer=end_layer, cfg=cfg,
-        styled_conv=lambda path, h, k, up: _styled_conv(_at(params, path), h, latent[:, k],
-                                                        noise[k], up=up),
-        to_rgb=lambda path, h, k, sk: _to_rgb(_at(params, path), h, latent[:, k], sk))
+    if end_layer == 0:
+        return out, skip
+    for pair in range(max(start_layer, 1), min(end_layer, cfg.log_size - 2) + 1):
+        i = 2 * pair - 1
+        h = _styled_conv(params["convs"][2 * pair - 2], x, latent[:, i], noise[i], up=True)
+        out = x = _styled_conv(params["convs"][2 * pair - 1], h, latent[:, i + 1], noise[i + 1])
+        skip = _to_rgb(params["to_rgbs"][pair - 1], out, latent[:, i + 2], skip)
+    return out, skip
 
 
 def synthesis(params, latent: Tensor, *,

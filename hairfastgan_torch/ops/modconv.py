@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from hairfastgan_torch.ops.basic import conv2d, fold_dtype
+from hairfastgan_torch.ops.columns import by_columns
 from hairfastgan_torch.ops.equalized import equal_linear
 from hairfastgan_torch.ops.upfirdn2d import blur2d, make_fir_kernel
 
@@ -86,6 +87,7 @@ def modulated_conv2d(p, x: torch.Tensor, style: torch.Tensor, *,
                          blur_kernel=blur_kernel, fuse_blur=fuse_blur)
 
 
+@by_columns
 def styled_conv2d(weight: torch.Tensor, x: torch.Tensor, s: torch.Tensor, *,
                   demodulate: bool = True, up: bool = False, down: bool = False,
                   blur_kernel: Tuple[int, ...] = (1, 3, 3, 1),

@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from hairfastgan_torch.ops.columns import Placed, cols
 from hairfastgan_torch.params.bridge import map_tree, port_perm
 
 Tensor = torch.Tensor
@@ -323,18 +324,33 @@ def _split_dim(key: Optional[str], x, n_model: int) -> Optional[int]:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class ModelSharded:
+class ModelSharded(Placed):
     """A parameter tree placed over the model axis of `plan`.
 
     dims:  the tree's split dims (`model_split_dims`; None: replicated)
     trees: an object array of the mesh grid's shape (n_data, n_model): the
            tree that the device at each position holds, slice j of every
-           split leaf at model index j, the replicated leaves whole
+           split leaf at model index j (an `ops.columns.Cols`: outside a
+           model-axis region, the plain slice), the replicated leaves whole
+
+    `tp[key]` is the subtree at `key` (one model of a zoo), placed as it is;
+    a model function given `tp` runs column-parallel (parallel/tensor.py).
     """
 
     plan: MeshPlan
     dims: Any
     trees: np.ndarray
+
+    def __getitem__(self, key) -> "ModelSharded":
+        out = np.empty(self.trees.shape, dtype=object)
+        for idx in np.ndindex(*self.trees.shape):
+            out[idx] = self.trees[idx][key]
+        return ModelSharded(self.plan, self.dims[key], out)
+
+    def spmd(self, fn: Callable, *args, **kwargs):
+        from hairfastgan_torch.parallel import tensor  # tensor.py imports this module
+
+        return tensor.spmd(self, fn, *args, **kwargs)
 
 
 def shard_params_model_axis(plan: MeshPlan, params):
@@ -371,5 +387,11 @@ def shard_params_model_axis(plan: MeshPlan, params):
         c = devs.index(grid[i, j])
         rep = iter(copies[c * len(whole):(c + 1) * len(whole)])
         ds = iter(flat_dims)
-        trees[i, j] = map_tree(params, lambda _, t: next(rep) if next(ds) is None else next(mine))
+
+        def leaf(_, t):
+            d = next(ds)
+            return next(rep) if d is None else cols(next(mine), d - t.ndim, weight=True)
+
+        trees[i, j] = map_tree(params, leaf)
     return ModelSharded(plan, dims, trees)
+

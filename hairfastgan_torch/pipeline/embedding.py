@@ -21,6 +21,7 @@ import torch
 
 from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.models import bisenet, e4e, iresnet, stylegan2
+from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.resample import bicubic_downsample, resize
 
 Tensor = torch.Tensor
@@ -48,6 +49,13 @@ def fse_downscale(img_norm: Tensor, out_size: int = 256) -> Tensor:
     return x
 
 
+@column_parallel
+def add_latent_avg(latent_avg: Tensor, latent: Tensor) -> Tensor:
+    """S + the FSE's stored latent average [n, 512] (a leaf that the model
+    axis splits on its features)."""
+    return latent + latent_avg.to(latent.dtype)[None]
+
+
 def embed_images(zoo: Dict, images: Tensor, *, mix: bool = True,
                  cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32) -> Dict[str, Tensor]:
@@ -60,7 +68,7 @@ def embed_images(zoo: Dict, images: Tensor, *, mix: bool = True,
     zero = stylegan2.make_noise(None, cfg.stylegan)  # the embedding renders noise-free
     latent_w = e4e.e4e_encode_nchw(zoo["e4e"], im_256_norm)
     latent_s, (content,) = iresnet.fs_encode_nchw(zoo["fse"], fse_downscale(img * 2.0 - 1.0))
-    latent_s = latent_s + zoo["fse_latent_avg"].to(latent_s.dtype)[None]
+    latent_s = add_latent_avg(zoo["fse_latent_avg"], latent_s)
     latent_f, _ = stylegan2.synthesis_nchw(
         zoo["generator"], latent_s, noise=zero, start_layer=3, end_layer=3,
         layer_in=content, cfg=cfg.stylegan, dtype=dtype)

@@ -207,6 +207,12 @@ tp = mesh.shard_params_model_axis(mesh.make_mesh(1, 2, devices=[torch.device("cp
                                   fill_random(stylegan2.init_generator_params(sg), 0))
 img = tensor.generate(tp, torch.full((2, sg.n_latent, 512), 0.1), cfg=sg)
 assert img.shape == (2, 16, 16, 3) and mesh.MOVES["all_gather"] > 0
+from hairfastgan_torch.pipeline.swap import hair_fast
+trip = [torch.from_numpy(rng.random((1, 128, 128, 3), dtype=np.float32)) for _ in range(3)]
+tpz = mesh.shard_params_model_axis(mesh.make_mesh(1, 2, devices=[torch.device("cpu")] * 2), zoo)
+with torch.inference_mode():
+    axis, flat = hair_fast(tpz, *trip, cfg=cfg), hair_fast(zoo, *trip, cfg=cfg)
+assert axis.shape == (1, 128, 128, 3) and float((axis - flat).abs().max()) <= 1e-5
 left = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hairfastgan_tpu"))
 assert not left, left
 print("SWAPPED", out.shape, "STEPPED")
@@ -217,8 +223,9 @@ def test_port_runs_with_jax_blocked():
     """With jax and the JAX package unimportable, the port's entry points
     (the training and evaluation scripts included) import, and a micro
     swap, a --tiny blending train step, a --micro PostProcess step with the
-    discriminator, InceptionV3 features and a column-parallel render on a
-    (1, 2) mesh run on the CPU, in a fresh interpreter."""
+    discriminator, InceptionV3 features, a column-parallel render and a
+    micro swap on a model-axis zoo on a (1, 2) mesh run on the CPU, in a
+    fresh interpreter."""
     res = subprocess.run([sys.executable, "-c", BLOCKED_RUN], capture_output=True, text=True,
                          timeout=300, cwd=PORT.parent)
     assert res.returncode == 0, res.stderr[-3000:]
