@@ -86,7 +86,11 @@ Phases (any failure exits nonzero and prints no result line):
      f32 against the one-device swap (1e-3 of max |y|) and HM_X's labels,
      2 kernel launches per swap at shapes phase 3 checked, moves per swap
      by kind (bf16 the same as f32), bf16 p50 in turns beside the unsharded
-     swap, peak memory
+     swap, peak memory; on (1, 2) also the paired shape modules, the
+     rotate cuts (6 pairs, parsed at 512), a packed zoo (its SEAN gb and
+     conv_gb split) and all of them together, each held the same way with
+     its bf16 moves; and make_sharded_swap handed the model-axis zoo
+     against the banded swap on the whole zoo
 Every path is run with the kernel's launch count set to 0 just before it
 and read just after; a path that did not launch the kernel fails the run,
 and so does a launch at a (shape, dtype, iterations) phase 3 did not check.
@@ -2851,6 +2855,129 @@ def phase_model_axis(device, card: str) -> dict:
 
 
 MODEL_AXIS_SWAP_MESHES = ((1, 2), (2, 2))
+MODEL_AXIS_OPTINS = {  # phase 18's (1, 2) cases: (cfg changes, packed zoo)
+    "paired": (dict(pair_shape_modules=True), False),
+    "cut": (dict(rot_render_pairs=6, rot_seg_size=512), False),
+    "packed": ({}, True),
+    "all": (dict(pair_shape_modules=True, rot_render_pairs=6, rot_seg_size=512), True),
+}
+HEAD_KINDS = ("conv0", "chain", "lin_b")  # the keys of e4e's styles_packed groups
+PACKED_KINDS = HEAD_KINDS + ("gb", "conv_gb", "fc_mu_b", "styles_b")
+
+
+def _split_packed(dims, kind=None, heads=False) -> list:
+    """The kind (PACKED_KINDS) of every split leaf of a split-dims tree
+    that lies under a packed key, one entry per leaf (HEAD_KINDS only
+    under e4e's styles_packed: SEAN's blocks have a conv0 of their own)."""
+    if isinstance(dims, dict):
+        return [x for k in dims for x in _split_packed(
+            dims[k], k if k in PACKED_KINDS and (heads or k not in HEAD_KINDS) else kind,
+            heads or k == "styles_packed")]
+    if isinstance(dims, list):
+        return [x for v in dims for x in _split_packed(v, kind, heads)]
+    return [kind] if dims is not None and kind is not None else []
+
+
+def _model_axis_optins(zoo32, trip, cfg32, cfg16, device, card) -> dict:
+    """Phase 18's cases on the (1, 2) mesh: the fast-path opt-ins and a
+    packed zoo, alone and all together (MODEL_AXIS_OPTINS), each in f32
+    (TF32 off, zero noise) against the one-device swap with the same config
+    and zoo (1e-3 of max |y|, HM_X agreement >= 0.999, 2 launches) and in
+    bf16 with the f32 moves; the packed leaves the full-width placement
+    splits (gb and conv_gb must be among them); and make_sharded_swap over
+    2 bands of [cuda:0] * 2 handed the model-axis zoo, against the same
+    banded swap on the whole zoo."""
+    import torch
+
+    from hairfastgan_torch.parallel import mesh, spatial
+    from hairfastgan_torch.pipeline.swap import hair_fast
+    from hairfastgan_torch.zoo import cast_zoo, pack_zoo
+
+    def moves():
+        return {k: v for k, v in mesh.MOVES.items() if v}
+
+    plan = mesh.make_mesh(1, 2, devices=[device] * 2)
+    zoos = {False: zoo32, True: pack_zoo(zoo32)}
+    placed = {k: mesh.shard_params_model_axis(plan, z) for k, z in zoos.items()}
+    kinds = collections.Counter(_split_packed(placed[True].dims))
+    log(f"[model_axis_swap] packed zoo on (1, 2): split packed leaves by kind {dict(kinds)} "
+        f"({sum(kinds.values())} in all)")
+    if not {"gb", "conv_gb"} <= set(kinds):
+        raise AssertionError(f"the packed SEAN gb / conv_gb do not split at full width: {kinds}")
+    out = {"split_packed": dict(kinds), "cases": {}}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    for name, (changes, packed) in MODEL_AXIS_OPTINS.items():
+        c32, c16 = (dataclasses.replace(c, **changes) for c in (cfg32, cfg16))
+        zoo, tp = zoos[packed], placed[packed]
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                ref, ref_inter = hair_fast(zoo, *trip, cfg=c32, dtype=torch.float32,
+                                           return_intermediate=True)
+                mesh.MOVES.clear()
+                got, inter = counted(f"model_axis_swap {name} f32", lambda: hair_fast(
+                    tp, *trip, cfg=c32, dtype=torch.float32, return_intermediate=True),
+                    at_least=2)
+                f32 = moves()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        agree = float((inter["HM_X"] == ref_inter["HM_X"]).float().mean())
+        hair = float(ref_inter["HM_X"].mean())
+        del ref, ref_inter, got, inter
+        tp16 = mesh.shard_params_model_axis(plan, cast_zoo(zoo, torch.bfloat16))
+        with torch.inference_mode():
+            mesh.MOVES.clear()
+            counted(f"model_axis_swap {name} bf16", lambda: hair_fast(
+                tp16, *trip, cfg=c16, dtype=torch.bfloat16), at_least=2)
+        bf16 = moves()
+        del tp16
+        launches = (LAUNCHES[f"model_axis_swap {name} f32"],
+                    LAUNCHES[f"model_axis_swap {name} bf16"])
+        out["cases"][name] = {"err": err, "scale": scale, "agree": agree, "hair": hair,
+                              "moves": f32, "moves_bf16": bf16, "launches": launches}
+        log(f"[model_axis_swap] (1, 2) {name} {changes}{' packed zoo' if packed else ''}, B=2 "
+            f"f32 zero noise (TF32 off) vs the one-device swap with the same config and zoo: "
+            f"max |diff| {err:.3e} of max |y| {scale:.4f} (limit 1e-3 of it); HM_X hair labels "
+            f"agree on {agree:.6f} (hair share {hair:.4f}); moves per swap f32 {f32}, bf16 "
+            f"{bf16}; dilate_erode launches f32 / bf16 {launches[0]} / {launches[1]}  [{card}]")
+        if not err <= 1e-3 * scale or agree < 0.999 or launches != (2, 2) or bf16 != f32:
+            raise AssertionError(f"model-axis swap {name}: |diff| {err} of {scale}, HM_X "
+                                 f"agreement {agree}, launches {launches}, moves f32 {f32} "
+                                 f"bf16 {bf16}")
+        if not 0.0 < hair < 1.0:
+            raise AssertionError(f"{name}: the f32 swap's target hair share is {hair}")
+
+    # make_sharded_swap handed the model-axis zoo: gathered whole once, then banded
+    bands = mesh.make_mesh(devices=[device] * 2)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            whole = counted("model_axis_swap banded whole f32", lambda: spatial.make_sharded_swap(
+                bands, cfg=cfg32, dtype=torch.float32, from_res=512)(zoo32, *trip), at_least=2)
+            swap = spatial.make_sharded_swap(bands, cfg=cfg32, dtype=torch.float32,
+                                             from_res=512)
+            mesh.MOVES.clear()
+            got = counted("model_axis_swap banded placed f32", lambda: swap(placed[False], *trip),
+                          at_least=2)
+            first = moves()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    err, scale = float((got - whole).abs().max()), float(whole.abs().max())
+    out["banded"] = {"err": err, "equal": bool(torch.equal(got, whole)), "moves": first,
+                     "launches": LAUNCHES["model_axis_swap banded placed f32"]}
+    log(f"[model_axis_swap] make_sharded_swap (2 bands of [{device}] * 2, from_res 512) handed "
+        f"the (1, 2) model-axis zoo vs the same banded swap on the whole zoo, B=2 f32: max "
+        f"|diff| {err:.3e} of max |y| {scale:.4f} (bit-equal {out['banded']['equal']}); moves "
+        f"of the first call {first} (one gather of the split leaves, then the bands'); "
+        f"dilate_erode launches {out['banded']['launches']}  [{card}]")
+    if not err <= 1e-3 * scale or out["banded"]["launches"] != 2 or first.get("gather", 0) < 1:
+        raise AssertionError(f"banded swap on the model-axis zoo: |diff| {err} of {scale}, "
+                             f"moves {first}, launches {out['banded']['launches']}")
+    del zoos, placed, whole, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_model_axis_swap(hf, zoo32, device, card: str) -> dict:
@@ -2926,6 +3053,10 @@ def phase_model_axis_swap(hf, zoo32, device, card: str) -> dict:
             del ref, ref_inter, got, inter, tp
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    t0 = time.perf_counter()
+    out["optins"] = _model_axis_optins(zoo32, trip, cfg32, cfg, device, card)
+    out["optins_s"] = time.perf_counter() - t0
+    log(f"[model_axis_swap] the opt-in, packed and banded cases took {out['optins_s']:.1f} s")
 
     # bf16 B=2 swaps in turns (order reversed every other round), p50 by
     # CUDA events; peak memory of one swap above what is resident
@@ -3119,6 +3250,14 @@ def main() -> int:
         + "; device events / idle share " + ", ".join(
             f"{k} {mas['events'][k]:.0f} / {mas['idle'][k]:.3f}" for k in mas["events"])
         + f"; dilate_erode launches per swap {LAUNCHES['model_axis_swap']}  [{card}]")
+    opt = mas["optins"]
+    log(f"[summary] model_axis_swap opt-ins on (1, 2), f32 max |diff| vs one device / HM_X "
+        f"agreement / all_gathers per swap: " + ", ".join(
+            f"{k} {c['err']:.2e} / {c['agree']:.6f} / {c['moves']['all_gather']}"
+            for k, c in opt["cases"].items())
+        + f" (bf16 moves = f32's); split packed leaves {opt['split_packed']}; banded swap on "
+        f"the model-axis zoo vs the whole zoo {opt['banded']['err']:.2e} (bit-equal "
+        f"{opt['banded']['equal']}), moves {opt['banded']['moves']}  [{card}]")
     jax_like = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                       or m.startswith("hairfastgan_tpu"))
     if jax_like:

@@ -147,14 +147,16 @@ def pack_style_heads(p):
 def _packed_head_group(g, x: Tensor) -> Tensor:
     """One packed group: [B,Cin,H,W] -> [B,k,512] head outputs. The JAX
     package runs the chain as shift-slice einsums (a TPU lowering); here
-    each link is one grouped conv with groups=k."""
+    each link is one grouped conv with groups=k, its [k, O] biases added
+    per head after it, as the JAX package adds them (on the model axis a
+    split bias is added to its slice)."""
     k = g["lin_w"].shape[0]
     x = F.leaky_relu(conv2d_p(g["conv0"], x, stride=2, padding=1), 0.01)
     for c in g["chain"]:
         w = c["w"].to(x.dtype)
-        x = F.leaky_relu(F.conv2d(x, w.reshape(-1, *w.shape[2:]),
-                                  c["b"].to(x.dtype).reshape(-1), stride=2, padding=1,
-                                  groups=k), 0.01)
+        y = F.conv2d(x, w.reshape(-1, *w.shape[2:]), stride=2, padding=1, groups=k)
+        y = y.unflatten(1, (k, -1)) + c["b"].to(x.dtype)[:, :, None, None]
+        x = F.leaky_relu(y, 0.01).flatten(1, 2)
     x = x.reshape(x.shape[0], k, -1)  # spatial is 1x1 here
     w = g["lin_w"].to(x.dtype) * (1.0 / math.sqrt(g["lin_w"].shape[2]))
     return torch.einsum("bkc,kdc->bkd", x, w) + g["lin_b"].to(x.dtype)

@@ -148,10 +148,12 @@ def fs_encode_nchw(p, x: Tensor) -> Tuple[Tensor, List[Tensor]]:
     # style input: AdaptiveAvgPool(3,3) of every stage, concatenated over
     # channels and flattened channel-major (torch NCHW order)
     flat = torch.cat([F.adaptive_avg_pool2d(f, (3, 3)) for f in feats], dim=1).flatten(1)
-    if "styles_w" in p:  # packed (pack_fs_styles): one linear over the heads' rows
+    if "styles_w" in p:  # packed (pack_fs_styles): one product over the heads' rows,
+        # then the [n, d] biases, as the JAX package writes it (on the model
+        # axis a split styles_b is added to its slice of the product)
         n, d, f = p["styles_w"].shape
-        styles = F.linear(flat, p["styles_w"].to(flat.dtype).reshape(n * d, f),
-                          p["styles_b"].to(flat.dtype).reshape(n * d)).reshape(-1, n, d)
+        styles = (F.linear(flat, p["styles_w"].to(flat.dtype).reshape(n * d, f)).reshape(-1, n, d)
+                  + p["styles_b"].to(flat.dtype))
     else:
         styles = torch.stack([linear(h, flat) for h in p["styles"]], dim=1)
     return styles, content

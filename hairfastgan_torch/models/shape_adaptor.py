@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from hairfastgan_torch.models.layers import init_conv, init_linear, spec
 from hairfastgan_torch.ops.basic import conv2d_p, linear
-from hairfastgan_torch.ops.columns import column_parallel
+from hairfastgan_torch.ops.columns import Placed, column_parallel
 from hairfastgan_torch.ops.segops import one_hot_mask
 
 Tensor = torch.Tensor
@@ -150,13 +150,21 @@ def get_hair_face_code(p, labels256: Tensor) -> Tuple[Tensor, Tensor]:
     return get_face_code(p, labels256), get_hair_code(p, labels256)
 
 
-@column_parallel
 def get_new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:
     """codes [B,1024] x [k*B,16] -> recombined 19-class labels [k*B,256,256]
     (solver.py:259-262); argmax of the logits == argmax of their softmax.
     With k > 1 hair codes per face code (one face recombined with the shape
     and the color pair's hair) the face decoder runs once at B and its
-    logits are tiled k times: exact, as they depend on the face code only."""
+    logits are tiled k times: exact, as they depend on the face code only.
+    A model-axis tree splits the batch over its data rows, which would part
+    hair codes from their face codes: there the face code is tiled first."""
+    if isinstance(p, Placed) and hair_code.shape[0] != face_code.shape[0]:
+        face_code = face_code.repeat(hair_code.shape[0] // face_code.shape[0], 1)
+    return _new_shape(p, face_code, hair_code)
+
+
+@column_parallel
+def _new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:
     k = hair_code.shape[0] // face_code.shape[0]
     hair_logit = mask_decode(p["hair_decoder"],
                              torch.cat([face_code.repeat(k, 1), hair_code], dim=-1))

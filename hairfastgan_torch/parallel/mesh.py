@@ -47,7 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from hairfastgan_torch.ops.columns import Placed, cols
+from hairfastgan_torch.ops.columns import Cols, Placed, cols, raw
 from hairfastgan_torch.params.bridge import map_tree, port_perm
 
 Tensor = torch.Tensor
@@ -395,3 +395,18 @@ def shard_params_model_axis(plan: MeshPlan, params):
         trees[i, j] = map_tree(params, leaf)
     return ModelSharded(plan, dims, trees)
 
+
+def whole_params(tp: ModelSharded):
+    """The tree that `tp` places, whole on the lead device (the counterpart
+    of the JAX package's replicated in_specs on a model-sharded zoo): each
+    split leaf's model-axis slices from the lead's data row concatenated
+    there, all in one `gather`; the replicated leaves as the lead position
+    holds them."""
+    n_model = tp.trees.shape[1]
+    rows: List[List[Cols]] = [[] for _ in range(n_model)]
+    for j, row in enumerate(rows):
+        map_tree(tp.trees[0, j], lambda _, t: row.append(t) if isinstance(t, Cols) else None)
+    moved = move([raw(r[k]) for k in range(len(rows[0])) for r in rows], tp.plan.lead, "gather")
+    wholes = iter([torch.cat(moved[k * n_model:(k + 1) * n_model], dim=c._split)
+                   for k, c in enumerate(rows[0])])
+    return map_tree(tp.trees[0, 0], lambda _, t: next(wholes) if isinstance(t, Cols) else t)

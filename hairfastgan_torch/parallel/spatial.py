@@ -37,7 +37,8 @@ import torch
 from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.models import stylegan2
 from hairfastgan_torch.parallel import mesh
-from hairfastgan_torch.parallel.mesh import MeshPlan, make_mesh, move, on, replicate
+from hairfastgan_torch.parallel.mesh import (MeshPlan, ModelSharded, make_mesh, move, on,
+                                             replicate)
 
 Tensor = torch.Tensor
 
@@ -167,12 +168,22 @@ def make_sharded_swap(plan: MeshPlan, *, case: str = "distinct",
     the I_blend PostProcess reads) and 1 more gather that assembles the
     final image's bands; plus, on a mesh of distinct devices, one broadcast
     of the generator on the first call with a zoo.
+
+    A zoo placed over a model axis (mesh.shard_params_model_axis) is
+    gathered whole on the lead device on the first call with it (one
+    `gather` of its split leaves: mesh.whole_params), as the JAX package's
+    shard_map gathers it through its replicated in_specs; the banded swap
+    then runs on the whole zoo.
     """
     from hairfastgan_torch.pipeline.swap import hair_fast
 
     cache: dict = {}
 
     def swap(zoo, face: Tensor, shape: Tensor, color: Tensor) -> Tensor:
+        if isinstance(zoo, ModelSharded):
+            if cache.get("placed") is not zoo:
+                cache.update(placed=zoo, whole=mesh.whole_params(zoo))
+            zoo = cache["whole"]
         gen = zoo["generator"]
         if cache.get("gen") is not gen:
             cache.update(gen=gen, sp=spatial_plan(plan, gen, from_res=from_res, halo=halo))

@@ -28,8 +28,6 @@ from hairfastgan_torch.pipeline.embedding import embed_images
 Tensor = torch.Tensor
 
 CASES = ("distinct", "shape_eq_color", "face_eq_shape", "face_eq_color", "same")
-# the keys zoo.pack_zoo's layouts add (e4e, FSE / PostProcess, SEAN)
-PACKED_KEYS = frozenset({"styles_packed", "styles_w", "fc_mu_w", "conv_gb", "gb"})
 
 
 def swap_cases(face, shape, color) -> str:
@@ -43,25 +41,6 @@ def swap_cases(face, shape, color) -> str:
     if face is color:
         return "face_eq_color"
     return "distinct"
-
-
-def _packed(tree) -> bool:
-    if isinstance(tree, dict):
-        return bool(PACKED_KEYS & tree.keys()) or any(_packed(v) for v in tree.values())
-    return isinstance(tree, list) and any(_packed(v) for v in tree)
-
-
-def _check_model_axis(zoo: ModelSharded, cfg: HairFastConfig, sp) -> None:
-    """The combinations of the model axis that are later work (ROADMAP.md)."""
-    later = [name for name, on in (
-        ("sp (the spatial split)", sp is not None),
-        ("cfg.pair_shape_modules", cfg.pair_shape_modules),
-        ("cfg.rot_render_pairs", cfg.rot_render_pairs is not None),
-        ("cfg.rot_seg_size", cfg.rot_seg_size < cfg.stylegan.size),
-        ("a packed zoo (zoo.pack_zoo)", _packed(zoo.trees[0, 0]))) if on]
-    if later:
-        raise ValueError(f"the model axis does not take {', '.join(later)} yet: later work, "
-                         "listed in ROADMAP.md")
 
 
 def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
@@ -94,12 +73,15 @@ def hair_fast(zoo: Dict, face: Tensor, shape: Tensor, color: Tensor, *,
     A `zoo` placed by parallel.mesh.shard_params_model_axis runs every model
     column-parallel on its (data, model) mesh (parallel/tensor.py); the glue
     between the models (resizes, masks, the dilate/erode kernel) runs on
-    the lead device. It takes every case, noise and intermediates, and none
-    of `sp`, the three opt-ins or a packed zoo yet."""
+    the lead device. It takes every case, noise, intermediates, the three
+    opt-ins and a packed zoo; not `sp` (make_sharded_swap gathers such a
+    zoo whole for it)."""
     if case not in CASES:
         raise ValueError(f"case must be one of {CASES}, got {case!r}")
-    if isinstance(zoo, ModelSharded):
-        _check_model_axis(zoo, cfg, sp)
+    if isinstance(zoo, ModelSharded) and sp is not None:
+        raise ValueError("the spatial split renders the bands from the whole zoo: "
+                         "parallel.spatial.make_sharded_swap takes a model-axis zoo and "
+                         "gathers it whole once")
     if sp is not None and (generator is not None or return_intermediate):
         raise ValueError("spatially-sharded swap supports the deterministic "
                          "zero-noise path without intermediates only")

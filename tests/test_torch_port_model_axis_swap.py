@@ -20,11 +20,10 @@ the one-device swap on the CPU). References:
 The dilate/erode calls stay where they were: two per swap (one where the
 alignment is skipped: face_eq_shape, same), on the lead device, at the
 one-device shapes. Noise drawn by a generator equals the one-device swap's
-draw. In bf16 the swap makes the f32 swap's all_gathers. The combinations
-that are later work (ROADMAP.md) raise.
+draw. In bf16 the swap makes the f32 swap's all_gathers. The spatial split
+(`sp`) on a model-axis zoo raises: make_sharded_swap takes such a zoo.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -164,26 +163,17 @@ def test_bf16_swap_gathers_as_f32(world):
     np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), rtol=0, atol=2e-2)
 
 
-LATER = {
-    "pair_shape_modules": (dict(pair_shape_modules=True), False, False),
-    "rot_render_pairs": (dict(rot_render_pairs=3), False, False),
-    "rot_seg_size": (dict(rot_seg_size=64), False, False),
-    "packed_zoo": ({}, True, False),
-    "sp": ({}, False, True),
-}
-
-
-@pytest.mark.parametrize("name", sorted(LATER))
+@pytest.mark.parametrize("name", ["sp"])
 def test_later_combinations_raise(name, world):
-    """The model axis with the fast-path opt-ins, a packed zoo or the
-    spatial split raises a ValueError naming ROADMAP.md, before any work
-    and without falling back to an unsharded swap."""
+    """The model axis with the spatial split raises a ValueError naming
+    make_sharded_swap (which gathers a model-axis zoo whole for the bands),
+    before any work and without falling back to an unsharded swap. The
+    fast-path opt-ins and a packed zoo run on the model axis:
+    tests/test_torch_port_model_axis_{optins,optins_cut,packed,packed_optins}.py."""
     zoo, cfg, trip, _, _, _ = world
-    changes, packed, banded = LATER[name]
-    plan = plan_of(1, 2)
-    tp = mesh.shard_params_model_axis(plan, tzoo.pack_zoo(zoo) if packed else zoo)
-    sp = spatial.spatial_plan(mesh.make_mesh(devices=[CPU] * 2), from_res=64) if banded else None
+    tp = mesh.shard_params_model_axis(plan_of(1, 2), zoo)
+    sp = spatial.spatial_plan(mesh.make_mesh(devices=[CPU] * 2), from_res=64)
     mesh.MOVES.clear()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        hair_fast(tp, *trip, cfg=dataclasses.replace(cfg, **changes), sp=sp)
+    with pytest.raises(ValueError, match="make_sharded_swap"):
+        hair_fast(tp, *trip, cfg=cfg, sp=sp)
     assert not mesh.MOVES["all_gather"]
