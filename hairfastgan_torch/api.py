@@ -33,10 +33,9 @@ from hairfastgan_torch.parallel import mesh
 from hairfastgan_torch.params.bridge import map_tree
 from hairfastgan_torch.pipeline.composite import poisson_composite
 from hairfastgan_torch.pipeline.swap import hair_fast, swap_cases
-from hairfastgan_torch.utils import face_align
+from hairfastgan_torch.utils import face_align, timing
 from hairfastgan_torch.utils.images import equal_replacer, save_image01, to_image_u8, to_raw_image
 from hairfastgan_torch.utils.save_utils import save_gen_image, save_latents, save_vis_mask
-from hairfastgan_torch.utils.timing import BenchSession
 from hairfastgan_torch.zoo import cast_zoo, init_zoo, load_zoo
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -54,9 +53,12 @@ def chunk_seed(seed: int, start: int) -> int:
     return int(np.random.SeedSequence([seed, start]).generate_state(1)[0])
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> ndarray: uint8 as it is, floats as float32."""
-    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+def _host(*ts: torch.Tensor) -> np.ndarray:
+    """Device tensor(s) -> ndarray: uint8 as it is, floats as float32;
+    several are concatenated on the device first. The `fetch` span."""
+    with timing.span("fetch"):
+        t = ts[0] if len(ts) == 1 else torch.cat(ts)
+        return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
 
 class HairFast:
@@ -74,7 +76,7 @@ class HairFast:
         else:
             zoo = map_tree(zoo, lambda _, t: t.to(self.device))
         self.zoo = cast_zoo(zoo, self.dtype) if self.dtype != torch.float32 else zoo
-        self.bench = BenchSession("swap")
+        self.bench = timing.BenchSession("swap")
         self.stream_loader = None  # the decoder the last swap_stream used
         self._replicas = {}  # tuple of mesh devices -> the zoo on each (swap_batch)
 
@@ -97,6 +99,7 @@ class HairFast:
         the batches already launched instead of waiting for them."""
         return self._host_tensor(a).to(self.device, non_blocking=True)
 
+    @timing.span("upload")
     def _upload(self, imgs: Sequence[np.ndarray]):
         """[H,W,3] arrays -> [1,H,W,3] device tensors; the same object
         uploads once (equal images share one tensor)."""
@@ -157,6 +160,7 @@ class HairFast:
             raise ValueError(f"out_res {out_res} must divide size {size}")
         return bicubic_downsample(final.permute(0, 3, 1, 2), size // out_res).permute(0, 2, 3, 1)
 
+    @timing.span("serve")
     def _serve(self, case: str, face, shape, color, generator, u8: bool,
                out_res: int, zoo: Optional[Dict] = None) -> torch.Tensor:
         """hair_fast plus the response levers, all on the device; `zoo` is
@@ -185,7 +189,14 @@ class HairFast:
                     output_res: Optional[int] = None) -> torch.Tensor:
         """Like `swap`, but returns the [H,W,3] result where it was computed
         (on the device: uint8, or float in the compute dtype, f32 after the
-        Poisson composite), without the host copy."""
+        Poisson composite), without the host copy. A `request` span where no
+        request is open on the thread."""
+        with timing.request(entry="swap_tensor", rows=1):
+            return self._swap_tensor(face_img, shape_img, color_img, benchmark, align, seed,
+                                     exp_name, poisson, output, upload_res, output_res)
+
+    def _swap_tensor(self, face_img, shape_img, color_img, benchmark, align, seed, exp_name,
+                     poisson, output, upload_res, output_res) -> torch.Tensor:
         if output not in OUTPUTS:
             raise ValueError(f"output must be one of {OUTPUTS}, got {output!r}")
         size = self.cfg.stylegan.size
@@ -201,6 +212,7 @@ class HairFast:
             face_full = None
         imgs = equal_replacer(imgs)
         case = swap_cases(*imgs)
+        timing.annotate(case=case)
         face, shape, color = self._upload(imgs)
         debug = self.cfg.save_all and exp_name is not None
         ores = self._output_res(output_res)
@@ -211,7 +223,7 @@ class HairFast:
         if not (poisson or debug):
             result = self._serve(case, face, shape, color, g, output == "uint8", ores)
         else:  # both need the full-size final image first
-            with torch.inference_mode():
+            with timing.span("serve"), torch.inference_mode():
                 out = hair_fast(self.zoo, face, shape, color, case=case, cfg=self.cfg,
                                 dtype=self.dtype, generator=g, return_intermediate=debug)
                 final, inter = out if debug else (out, None)
@@ -248,11 +260,12 @@ class HairFast:
         downsample); align=True FFHQ-aligns in-the-wild photos first (STAR
         on the device when the zoo has "star", else dlib); benchmark=True
         times the call into self.bench; exp_name with cfg.save_all dumps the
-        intermediates under cfg.save_all_dir/exp_name."""
-        out = self.swap_tensor(face_img, shape_img, color_img, benchmark=benchmark, align=align,
-                               seed=seed, exp_name=exp_name, poisson=poisson, output=output,
-                               upload_res=upload_res, output_res=output_res)
-        return _host(out)
+        intermediates under cfg.save_all_dir/exp_name. One `request` span."""
+        with timing.request(entry="swap", rows=1):
+            out = self.swap_tensor(face_img, shape_img, color_img, benchmark=benchmark,
+                                   align=align, seed=seed, exp_name=exp_name, poisson=poisson,
+                                   output=output, upload_res=upload_res, output_res=output_res)
+            return _host(out)
 
     __call__ = swap
 
@@ -303,34 +316,37 @@ class HairFast:
         cfg.max_batch_per_dispatch; the chunk starting at row i draws its
         noise from a generator seeded with chunk_seed(cfg.seed, i), so a
         batch that fits in one chunk draws from chunk_seed(cfg.seed, 0).
-        output="uint8" quantizes on the device(s)."""
-        u8 = output == "uint8"
-        b = len(faces)
-        size = self.cfg.stylegan.size
-        devs = mesh.local_devices(self.device)
-        if len(devs) > 1 and b % len(devs) == 0:
-            plan = mesh.make_mesh(devices=devs)
-            key = tuple(devs)
-            if key not in self._replicas:
-                self._replicas[key] = mesh.replicate(plan, self.zoo)
-            seed = chunk_seed(self.cfg.seed, 0)
+        output="uint8" quantizes on the device(s). One `request` span."""
+        with timing.request(entry="swap_batch", case=case, rows=len(faces)):
+            u8 = output == "uint8"
+            b = len(faces)
+            size = self.cfg.stylegan.size
+            devs = mesh.local_devices(self.device)
+            if len(devs) > 1 and b % len(devs) == 0:
+                plan = mesh.make_mesh(devices=devs)
+                key = tuple(devs)
+                if key not in self._replicas:
+                    self._replicas[key] = mesh.replicate(plan, self.zoo)
+                seed = chunk_seed(self.cfg.seed, 0)
 
-            def shard(zoo, face, shape, color):
-                g = torch.Generator(device=face.device)
-                g.manual_seed(seed)
-                return self._serve(case, face, shape, color, g, u8, size, zoo)
+                def shard(zoo, face, shape, color):
+                    g = torch.Generator(device=face.device)
+                    g.manual_seed(seed)
+                    return self._serve(case, face, shape, color, g, u8, size, zoo)
 
-            host = [self._host_tensor(a) for a in (faces, shapes, colors)]
-            out = mesh.data_parallel(plan, shard, (False, True, True, True))(
-                self._replicas[key], *host)
-            return _host(out)
-        chunk = self.cfg.max_batch_per_dispatch or b
-        outs = []
-        for i in range(0, b, chunk):
-            part = [self._to_device(a[i:i + chunk]) for a in (faces, shapes, colors)]
-            g = self._generator(chunk_seed(self.cfg.seed, i))
-            outs.append(self._serve(case, *part, g, u8, size))
-        return _host(torch.cat(outs))
+                with timing.span("upload"):
+                    host = [self._host_tensor(a) for a in (faces, shapes, colors)]
+                out = mesh.data_parallel(plan, shard, (False, True, True, True))(
+                    self._replicas[key], *host)
+                return _host(out)
+            chunk = self.cfg.max_batch_per_dispatch or b
+            outs = []
+            for i in range(0, b, chunk):
+                with timing.span("upload"):
+                    part = [self._to_device(a[i:i + chunk]) for a in (faces, shapes, colors)]
+                g = self._generator(chunk_seed(self.cfg.seed, i))
+                outs.append(self._serve(case, *part, g, u8, size))
+            return _host(*outs)
 
     def swap_stream(self, triples, case: str = "distinct", depth: int = 3,
                     output: str = "float32", batch: int = 1,
@@ -348,84 +364,90 @@ class HairFast:
         shape. Every batch draws its noise as a one-chunk swap_batch does, so
         a group's results are swap_batch's on the padded group. A triple that
         fails to decode yields (index, None), in launch order, and the stream
-        goes on. upload_res / output_res as in `swap`.
+        goes on. upload_res / output_res as in `swap`. The stream is one
+        `request` span, open across the yields.
         """
-        up = self._upload_res(upload_res)
-        ores = self._output_res(output_res)
-        u8 = output == "uint8"
-        paths = [p for t in triples for p in t]
-        images: Dict[int, np.ndarray] = {}
-        loader = None
-        self.stream_loader = "native C++" if native_loader.native_available() else "PIL"
-        if self.stream_loader == "native C++":
-            loader = native_loader.NativeImageLoader(paths, out_size=up, threads=4)
-            got = iter(loader)
-        else:  # failed decodes are absent from `images`, as with the native loader
-            for i, p in enumerate(paths):
-                try:
-                    images[i] = to_image_u8(p, up)
-                except Exception as e:
-                    warnings.warn(f"decode failed: {p} ({e})")
-            got = iter(())
+        with timing.request(entry="swap_stream", case=case, rows=len(triples)):
+            up = self._upload_res(upload_res)
+            ores = self._output_res(output_res)
+            u8 = output == "uint8"
+            paths = [p for t in triples for p in t]
+            images: Dict[int, np.ndarray] = {}
+            loader = None
+            self.stream_loader = "native C++" if native_loader.native_available() else "PIL"
+            if self.stream_loader == "native C++":
+                loader = native_loader.NativeImageLoader(paths, out_size=up, threads=4)
+                got = iter(loader)
+            else:  # failed decodes are absent from `images`, as with the native loader
+                for i, p in enumerate(paths):
+                    try:
+                        images[i] = to_image_u8(p, up)
+                    except Exception as e:
+                        warnings.warn(f"decode failed: {p} ({e})")
+                got = iter(())
 
-        pending = collections.deque()  # (triple indices, (host, event) or None)
-        next_needed, n, drained = 0, len(triples), False
+            pending = collections.deque()  # (triple indices, (host, event) or None)
+            next_needed, n, drained = 0, len(triples), False
 
-        def ready(i):
-            return all(3 * i + j in images for j in range(3))
+            def ready(i):
+                return all(3 * i + j in images for j in range(3))
 
-        def launch(idxs):
-            pad = list(idxs) + [idxs[-1]] * (batch - len(idxs))
-            face, shape, color = (self._to_device(np.stack([images[3 * i + j] for i in pad]))
-                                  for j in range(3))
-            for i in idxs:
-                for j in range(3):
-                    images.pop(3 * i + j)
-            out = self._serve(case, face, shape, color,
-                              self._generator(chunk_seed(self.cfg.seed, 0)), u8, ores)
-            pending.append((idxs, self._fetch_async(out if u8 else out.float())))
+            def launch(idxs):
+                pad = list(idxs) + [idxs[-1]] * (batch - len(idxs))
+                with timing.span("upload"):
+                    face, shape, color = (
+                        self._to_device(np.stack([images[3 * i + j] for i in pad]))
+                        for j in range(3))
+                for i in idxs:
+                    for j in range(3):
+                        images.pop(3 * i + j)
+                out = self._serve(case, face, shape, color,
+                                  self._generator(chunk_seed(self.cfg.seed, 0)), u8, ores)
+                with timing.span("fetch"):
+                    pending.append((idxs, self._fetch_async(out if u8 else out.float())))
 
-        try:
-            while next_needed < n or pending:
-                while next_needed < n and len(pending) < depth:
-                    group = list(range(next_needed, min(next_needed + batch, n)))
-                    if all(ready(i) for i in group):
-                        launch(group)
-                        next_needed = group[-1] + 1
-                    elif not drained:
-                        try:
-                            idx, img = next(got)
-                            images[idx] = img
-                        except StopIteration:
-                            drained = True
-                    else:  # decode failures in this group: mark them, batch the rest
-                        good = [i for i in group if ready(i)]
-                        bad = [i for i in group if not ready(i)]
-                        for i in bad:
-                            missing = [paths[3 * i + j] for j in range(3)
-                                       if 3 * i + j not in images]
-                            warnings.warn(f"skipping triple {i}: decode failed for {missing}")
-                            for j in range(3):
-                                images.pop(3 * i + j, None)
-                        pending.append((bad, None))
-                        if good:
-                            launch(good)
-                        next_needed = group[-1] + 1
-                if pending:
-                    idxs, fetched = pending.popleft()
-                    if fetched is None:
-                        for i in idxs:
-                            yield i, None
-                        continue
-                    host, done = fetched
-                    if done is not None:
-                        done.synchronize()
-                    host = host.numpy()
-                    for j, i in enumerate(idxs):
-                        yield i, host[j]
-        finally:  # stops the decode threads when the stream ends or is dropped
-            if loader is not None:
-                loader.close()
+            try:
+                while next_needed < n or pending:
+                    while next_needed < n and len(pending) < depth:
+                        group = list(range(next_needed, min(next_needed + batch, n)))
+                        if all(ready(i) for i in group):
+                            launch(group)
+                            next_needed = group[-1] + 1
+                        elif not drained:
+                            try:
+                                idx, img = next(got)
+                                images[idx] = img
+                            except StopIteration:
+                                drained = True
+                        else:  # decode failures in this group: mark them, batch the rest
+                            good = [i for i in group if ready(i)]
+                            bad = [i for i in group if not ready(i)]
+                            for i in bad:
+                                missing = [paths[3 * i + j] for j in range(3)
+                                           if 3 * i + j not in images]
+                                warnings.warn(f"skipping triple {i}: decode failed for {missing}")
+                                for j in range(3):
+                                    images.pop(3 * i + j, None)
+                            pending.append((bad, None))
+                            if good:
+                                launch(good)
+                            next_needed = group[-1] + 1
+                    if pending:
+                        idxs, fetched = pending.popleft()
+                        if fetched is None:
+                            for i in idxs:
+                                yield i, None
+                            continue
+                        host, done = fetched
+                        with timing.span("fetch"):
+                            if done is not None:
+                                done.synchronize()
+                            host = host.numpy()
+                        for j, i in enumerate(idxs):
+                            yield i, host[j]
+            finally:  # stops the decode threads when the stream ends or is dropped
+                if loader is not None:
+                    loader.close()
 
 
 def get_parser() -> argparse.ArgumentParser:

@@ -17,6 +17,7 @@ from hairfastgan_torch.models.layers import init_bn, init_conv, init_conv_bn
 from hairfastgan_torch.ops.basic import avg_pool_global, batch_norm, conv2d_p
 from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.resample import resize
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -160,6 +161,7 @@ def parse_to_celeba(p, img01: Tensor) -> Tensor:
     return parse_to_celeba_nchw(p, img01.permute(0, 3, 1, 2))
 
 
+@timing.span("bisenet")
 @column_parallel
 def segment_256_nchw(p, img01: Tensor) -> Tensor:
     labels = parse_to_celeba_nchw(p, img01)

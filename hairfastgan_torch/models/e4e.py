@@ -23,6 +23,7 @@ from hairfastgan_torch.ops.basic import avg_pool_global, batch_norm, conv2d_p, p
 from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.equalized import equal_linear
 from hairfastgan_torch.ops.resample import resize
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -193,6 +194,7 @@ def init_e4e(n_styles: int = 18, se: bool = True, width: float = 1.0):
             "latent_avg": spec(n_styles, 512)}
 
 
+@timing.span("e4e")
 @column_parallel
 def e4e_encode_nchw(p, x: Tensor, add_latent_avg: bool = True) -> Tensor:
     c1, c2, c3 = irse_pyramid(p["backbone"], x)

@@ -25,6 +25,7 @@ from hairfastgan_torch.ops.basic import layer_norm, linear
 from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.equalized import pixel_norm
 from hairfastgan_torch.ops.resample import resize
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -56,6 +57,7 @@ def init_rotate_model():
     return {"mods": [init_modulation_module() for _ in range(5)]}
 
 
+@timing.span("rotate")
 @column_parallel
 def rotate_model(p, latent_from: Tensor, latent_to: Tensor) -> Tensor:
     """W[:, :6] of (shape source, face target) -> rotated W[:, :6]."""
@@ -78,6 +80,7 @@ def clip_image_embed(clip_params, img_norm: Tensor) -> Tensor:
     return clip_image_embed_nchw(clip_params, img_norm.permute(0, 3, 1, 2))
 
 
+@timing.span("blending")
 @column_parallel
 def blending_model(p, latent_face: Tensor, latent_color: Tensor,
                    target_face: Tensor, hair_color: Tensor) -> Tensor:
@@ -139,6 +142,7 @@ def post_process_model_train(p, source: Tensor, target: Tensor,
     return s_final, iresnet.feature_iresnet(p["to_feature"], cat_f)
 
 
+@timing.span("post_process")
 @column_parallel
 def post_process_model(p, source: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """(I_face_norm256, I_blend_norm256), NHWC -> (S_final [B,n,512],

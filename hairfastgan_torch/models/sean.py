@@ -27,6 +27,7 @@ from hairfastgan_torch.ops.basic import batch_norm, conv2d, conv2d_p, instance_n
 from hairfastgan_torch.ops.columns import by_columns, column_parallel, randn_rows
 from hairfastgan_torch.ops.resample import resize
 from hairfastgan_torch.ops.segops import one_hot_mask, region_mean
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -210,6 +211,7 @@ def pack_sean(p):
     return q
 
 
+@timing.span("sean")
 @column_parallel
 def sean_encode(p, img: Tensor, labels: Tensor) -> Tensor:
     """encode_sean (pix2pix_model.py:299-306): NHWC image + [B,H,W] labels
@@ -218,6 +220,7 @@ def sean_encode(p, img: Tensor, labels: Tensor) -> Tensor:
     return zencoder_codes(p["zencoder"], img.permute(0, 3, 1, 2), onehot)
 
 
+@timing.span("sean")
 @column_parallel
 def sean_decode(p, style_codes: Tensor, target_labels: Tensor,
                 generator: Optional[torch.Generator] = None) -> Tensor:

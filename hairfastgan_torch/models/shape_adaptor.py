@@ -24,6 +24,7 @@ from hairfastgan_torch.models.layers import init_conv, init_linear, spec
 from hairfastgan_torch.ops.basic import conv2d_p, linear
 from hairfastgan_torch.ops.columns import Placed, column_parallel
 from hairfastgan_torch.ops.segops import one_hot_mask
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -126,6 +127,7 @@ def init_shape_adaptor(hidden: int = 32):
     }
 
 
+@timing.span("shape_adaptor")
 @column_parallel
 def get_face_code(p, labels256: Tensor) -> Tensor:
     """labels [B,256,256] -> face code [B,1024] (the 18 non-hair channels).
@@ -136,6 +138,7 @@ def get_face_code(p, labels256: Tensor) -> Tensor:
     return mask_encode(p["face_encoder"], face)
 
 
+@timing.span("shape_adaptor")
 @column_parallel
 def get_hair_code(p, labels256: Tensor) -> Tensor:
     """labels [B,256,256] -> hair code [B,16] (VAE mean, test path)."""
@@ -150,6 +153,7 @@ def get_hair_face_code(p, labels256: Tensor) -> Tuple[Tensor, Tensor]:
     return get_face_code(p, labels256), get_hair_code(p, labels256)
 
 
+@timing.span("shape_adaptor")
 def get_new_shape(p, face_code: Tensor, hair_code: Tensor) -> Tensor:
     """codes [B,1024] x [k*B,16] -> recombined 19-class labels [k*B,256,256]
     (solver.py:259-262); argmax of the logits == argmax of their softmax.

@@ -25,6 +25,7 @@ from hairfastgan_torch.ops.equalized import equal_linear, pixel_norm
 from hairfastgan_torch.ops.fused_act import fused_leaky_relu
 from hairfastgan_torch.ops.modconv import modulated_conv2d
 from hairfastgan_torch.ops.upfirdn2d import upsample2d
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -128,6 +129,8 @@ def _to_rgb(p, x: Tensor, style: Tensor, skip: Optional[Tensor] = None) -> Tenso
     return y
 
 
+@timing.span("generator", of_call=lambda a: {"start_layer": a["start_layer"],
+                                                "end_layer": a["end_layer"]})
 @column_parallel
 def synthesis_nchw(params, latent: Tensor, *, noise: Sequence[Optional[Tensor]],
                    start_layer: int = 0, end_layer: int = 8,

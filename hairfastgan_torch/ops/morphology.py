@@ -28,6 +28,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from hairfastgan_torch.utils import timing
+
 Tensor = torch.Tensor
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -121,11 +123,15 @@ def _launch(mask: Tensor, iterations: int) -> Tuple[Tensor, Tensor]:
     return dil, ero
 
 
+@timing.span("dilate_erode", of_call=lambda a: {"shape": tuple(a["mask"].shape),
+                                                 "itemsize": a["mask"].element_size(),
+                                                 "iterations": a["iterations"]})
 def dilate_erode(mask: Tensor, iterations: int = 5) -> Tuple[Tensor, Tensor]:
     """(dilated, eroded) of binary [B,H,W,1] masks, in the input dtype.
 
     CUDA tensor: the hand-written kernel (counted in `dilate_erode.launches`).
-    CPU tensor: the plain version. Any other device raises.
+    CPU tensor: the plain version. Any other device raises. A `dilate_erode`
+    span (attrs shape, itemsize, iterations).
     """
     if mask.device.type == "cuda":
         return _launch(mask, iterations)

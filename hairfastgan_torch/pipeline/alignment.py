@@ -27,6 +27,7 @@ from hairfastgan_torch.ops.morphology import dilate_erode
 from hairfastgan_torch.ops.resample import resize
 from hairfastgan_torch.parallel.spatial import sharded_synthesis
 from hairfastgan_torch.pipeline.embedding import e4e_embed, to_res
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -70,6 +71,7 @@ def parse_render(bisenet_p, rgb: Tensor, seg_size: int) -> Tensor:
     return bisenet.segment_256_nchw(bisenet_p, img01)
 
 
+@timing.span("shape")
 def shape_module(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor], *,
                  same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,
@@ -91,6 +93,7 @@ def shape_module(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor]
             "rot_mask": rot_mask}
 
 
+@timing.span("shape")
 def shape_module_pair(zoo: Dict, e_face: Dict[str, Tensor], e_shape: Dict[str, Tensor],
                       e_color: Dict[str, Tensor], *, cfg: HairFastConfig = HairFastConfig(),
                       dtype: torch.dtype = torch.float32,
@@ -124,6 +127,7 @@ def shape_module_pair(zoo: Dict, e_face: Dict[str, Tensor], e_shape: Dict[str, T
     return out[0], out[1]
 
 
+@timing.span("align")
 def align_images(zoo: Dict, embed1: Dict[str, Tensor], embed2: Dict[str, Tensor], *,
                  same: bool = False, cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32,

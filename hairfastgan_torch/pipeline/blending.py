@@ -28,10 +28,12 @@ from hairfastgan_torch.ops.morphology import dilate_erode
 from hairfastgan_torch.parallel import mesh
 from hairfastgan_torch.parallel.spatial import sharded_synthesis
 from hairfastgan_torch.pipeline.embedding import to_res
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
 
+@timing.span("blend")
 def blend_images(zoo: Dict, align_shape: Dict[str, Tensor], align_color: Dict[str, Tensor],
                  embed_face: Dict[str, Tensor], embed_color: Dict[str, Tensor], *,
                  all_same: bool = False, cfg: HairFastConfig = HairFastConfig(),

@@ -23,6 +23,7 @@ from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.models import bisenet, e4e, iresnet, stylegan2
 from hairfastgan_torch.ops.columns import column_parallel
 from hairfastgan_torch.ops.resample import bicubic_downsample, resize
+from hairfastgan_torch.utils import timing
 
 Tensor = torch.Tensor
 
@@ -56,6 +57,7 @@ def add_latent_avg(latent_avg: Tensor, latent: Tensor) -> Tensor:
     return latent + latent_avg.to(latent.dtype)[None]
 
 
+@timing.span("embed")
 def embed_images(zoo: Dict, images: Tensor, *, mix: bool = True,
                  cfg: HairFastConfig = HairFastConfig(),
                  dtype: torch.dtype = torch.float32) -> Dict[str, Tensor]:
@@ -67,7 +69,9 @@ def embed_images(zoo: Dict, images: Tensor, *, mix: bool = True,
 
     zero = stylegan2.make_noise(None, cfg.stylegan)  # the embedding renders noise-free
     latent_w = e4e.e4e_encode_nchw(zoo["e4e"], im_256_norm)
-    latent_s, (content,) = iresnet.fs_encode_nchw(zoo["fse"], fse_downscale(img * 2.0 - 1.0))
+    fse_in = fse_downscale(img * 2.0 - 1.0)
+    with timing.span("fse"):  # here: PostProcess runs the same trunk on its own weights
+        latent_s, (content,) = iresnet.fs_encode_nchw(zoo["fse"], fse_in)
     latent_s = add_latent_avg(zoo["fse_latent_avg"], latent_s)
     latent_f, _ = stylegan2.synthesis_nchw(
         zoo["generator"], latent_s, noise=zero, start_layer=3, end_layer=3,

@@ -30,9 +30,11 @@ decode and encode of other requests off the worker. A body over MAX_BODY
 bytes gets 413 before it is read; a malformed request or query parameter
 gets 400; a failed swap gets 500 with a generic message, its traceback going
 to stderr. A 200 carries a Server-Timing header with the milliseconds of
-each step by the server's clock: decode (read, multipart split, image
-decode), queue (waiting for the worker), swap (hf.swap, result on the host)
-and encode (PNG).
+each step, the durations of its spans (utils/timing): decode (http.decode:
+read, multipart split, image decode), queue (http.queue: waiting for the
+worker), swap (http.swap: hf.swap, result on the host) and encode
+(http.encode: PNG). A request is one `request` span (entry "http"), which
+the worker's spans join.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import email.parser
 import io
 import json
 import sys
-import time
+import threading
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -56,6 +58,7 @@ from PIL import Image
 
 from hairfastgan_torch.config import HairFastConfig
 from hairfastgan_torch.main import build
+from hairfastgan_torch.utils import timing
 
 MAX_BODY = 64 * 2 ** 20  # bytes of one /swap request body
 FIELDS = ("face", "shape", "color")
@@ -185,42 +188,55 @@ def make_handler(hf, worker: ThreadPoolExecutor):
                 self.close_connection = True
                 self._json(413, {"error": f"body of {length} bytes over the {MAX_BODY}-byte cap"})
                 return
-            t = [time.perf_counter()]
-            try:
-                parts = parse_multipart(self.headers.get("Content-Type", ""),
-                                        self.rfile.read(length))
-                missing = [k for k in FIELDS if not parts.get(k)]
-                if missing:
-                    self._json(400, {"error": f"missing fields: {missing}"})
-                    return
-                # uint8 [H,W,3] arrays, which to_image_u8 passes through or
-                # resizes natively (a PIL image would take the float route)
-                imgs = [np.asarray(Image.open(io.BytesIO(parts[k])).convert("RGB"))
-                        for k in FIELDS]
-                q = parse_query(url.query)
-            except Exception as e:  # the request's bytes: any failure to parse them is its own
-                self._json(400, {"error": f"bad request: {e}"})
-                return
-            t.append(time.perf_counter())
+            with timing.span("request", entry="http") as request:
+                self._swap(url, length, request)
 
-            def swap():
-                start = time.perf_counter()
-                return start, hf.swap(*imgs, output="uint8", upload_res=q["upload_res"],
+        def _swap(self, url, length: int, request):
+            """A /swap request after its length check, in its `request`
+            span: the http.* spans time its steps for the header."""
+            error = None
+            with timing.span("http.decode") as decode:
+                try:
+                    parts = parse_multipart(self.headers.get("Content-Type", ""),
+                                            self.rfile.read(length))
+                    missing = [k for k in FIELDS if not parts.get(k)]
+                    if missing:
+                        error = f"missing fields: {missing}"
+                    else:
+                        # uint8 [H,W,3] arrays, which to_image_u8 passes through or
+                        # resizes natively (a PIL image would take the float route)
+                        imgs = [np.asarray(Image.open(io.BytesIO(parts[k])).convert("RGB"))
+                                for k in FIELDS]
+                        q = parse_query(url.query)
+                except Exception as e:  # the request's bytes: any failure to parse them is its own
+                    error = f"bad request: {e}"
+            if error is not None:
+                self._json(400, {"error": error})
+                return
+            started = threading.Event()
+
+            def swap():  # on the worker: its spans join this request
+                started.set()
+                with timing.span("http.swap", parent=request) as s:
+                    return s, hf.swap(*imgs, output="uint8", upload_res=q["upload_res"],
                                       output_res=q["output_res"], poisson=bool(q["poisson"]),
                                       align=bool(q["align"]), seed=q["seed"])
 
             try:
-                start, out = worker.submit(swap).result()  # one swap at a time (docstring)
-                t += [start, time.perf_counter()]
-                buf = io.BytesIO()
-                Image.fromarray(out).save(buf, format="PNG")
-                t.append(time.perf_counter())
+                with timing.span("http.queue") as queue:  # until the worker takes it
+                    done = worker.submit(swap)  # one swap at a time (docstring)
+                    started.wait()
+                swapped, out = done.result()
+                with timing.span("http.encode") as encode:
+                    buf = io.BytesIO()
+                    Image.fromarray(out).save(buf, format="PNG")
             except Exception:  # the server keeps serving; the details go to its log
                 traceback.print_exc(file=sys.stderr)
                 self._json(500, {"error": "swap failed"})
                 return
-            timing = ", ".join(f"{k};dur={(b - a) * 1e3:.3f}" for k, a, b in zip(TIMED, t, t[1:]))
-            self._send(200, buf.getvalue(), "image/png", {"Server-Timing": timing})
+            header = ", ".join(f"{k};dur={s.ms:.3f}"
+                               for k, s in zip(TIMED, (decode, queue, swapped, encode)))
+            self._send(200, buf.getvalue(), "image/png", {"Server-Timing": header})
 
     return Handler
 

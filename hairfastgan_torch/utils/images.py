@@ -15,6 +15,7 @@ import numpy as np
 from PIL import Image
 
 from hairfastgan_torch.data import native_loader
+from hairfastgan_torch.utils import timing
 
 TImage = Union[np.ndarray, Image.Image, str, Path]
 
@@ -48,9 +49,10 @@ def to_image_array(img: TImage, size: int = 1024) -> np.ndarray:
     return arr
 
 
+@timing.span("upload")
 def to_image_u8(img: TImage, size: int = 1024) -> np.ndarray:
     """Anything -> [size,size,3] uint8 (the device normalizes; 1/4 of the
-    float bytes to upload).
+    float bytes to upload). An `upload` span.
 
     A uint8 [size,size,3] array passes through without a copy. A uint8
     [H,W,3] array of another size is resized by the native Keys bicubic
