@@ -3,21 +3,22 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (timed as setup_s from the process's start): the configuration's
-weights drawn on the device from the seed, `HairFast` built on them, the
-traffic's images made and its shapes warmed (by the traffic's loop,
+program built on its weights, drawn on the device from the seed
+(portbench/programs/<name>.py, portbench/weights.py), the traffic's inputs
+made and its shapes warmed (by the traffic's loop,
 portbench/loops/<kind>.py). Then the window. With --trace 0 the line carries
 the cell's end-to-end metrics; with --trace 1 the spans that the cell's
 per-layer metrics read (portbench/spans/) are set on the program for the
 run, a short sub-window of whole transfers is profiled, and the line carries
 the cell's per-layer metrics. After the window: the device's peak memory, the program
 freed, and the comparison with the plain reference on a sample of the
-window's outputs drawn from the seed (portbench/check.py).
+window's outputs drawn from the seed, judged by the configuration's kind of
+comparison (portbench/check.py, portbench/checks/<kind>.py).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import gc
 import json
 import subprocess
@@ -61,33 +62,11 @@ class RunRecord:
         return sum(r["transfers"] for r in self.requests)
 
 
-def program_config(conf: Dict):
-    """The program's HairFastConfig of a configuration file."""
-    from hairfastgan_torch import config as P
-
-    rcfg = check.reference_config(conf)
-    fields = {f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)}
-    fields["stylegan"] = P.StyleGANConfig(**dataclasses.asdict(rcfg.stylegan))
-    for k in ("sean", "shape_adaptor", "clip"):
-        fields[k] = getattr(P, type(getattr(rcfg, k)).__name__)(
-            **dataclasses.asdict(getattr(rcfg, k)))
-    return P.HairFastConfig(**fields)
-
-
-def build_program(conf: Dict, seed: int, device):
-    """HairFast on the configuration's weights, as the configuration serves."""
-    import torch
-
-    from hairfastgan_torch import zoo as Z
-    from hairfastgan_torch.api import HairFast
-
-    from portbench import weights
-
-    zoo, _ = weights.make_zoo(conf["weights"], seed, device,
-                              getattr(torch, conf["weights"]["dtype"]))
-    for name in conf.get("zoo_transforms", []):  # e.g. "pack_zoo"
-        zoo = getattr(Z, name)(zoo)
-    return HairFast(program_config(conf), zoo=zoo, device=device)
+def build_program(conf: Dict, seed: int, device, reg: Optional[Registry] = None):
+    """What the configuration's program builds on its weights
+    (portbench/programs/<name>.py, Registry.program): the object that the
+    traffic's loop drives."""
+    return (reg or Registry.load()).program(conf).build(conf, seed, device)
 
 
 def power_limit() -> str:
@@ -119,7 +98,7 @@ def run_cell(reg: Registry, cell_name: str, seed: int, seconds: float, trace: bo
         rec.device_name = torch.cuda.get_device_name(dev)
         rec.power_limit = power_limit()
 
-    hf = build_program(conf, seed, dev)
+    hf = build_program(conf, seed, dev, reg)
     loop = reg.loop(traffic, hf, seed, dev)
     tracer = None
     try:
@@ -139,8 +118,6 @@ def run_cell(reg: Registry, cell_name: str, seed: int, seconds: float, trace: bo
                 tracer.remove()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        if tracer is not None:
-            tracer.resolve()
         own1 = time.process_time()
         rec.window_s = loop.end - loop.start
         rec.requests = loop.records
@@ -155,8 +132,11 @@ def run_cell(reg: Registry, cell_name: str, seed: int, seconds: float, trace: bo
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    found, detail = check.compare(conf, seed, dev, samples, control)
-    correct, lines = check.verdict(found, reg.limits(cell_name))
+    kind = reg.check(conf)
+    found, detail = kind.compare(conf, seed, dev, samples, control)
+    numbers = list(kind.NUMBERS)
+    limits = reg.limits(cell_name)
+    correct, lines = check.verdict(found, limits, numbers)
 
     section = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -184,8 +164,8 @@ def run_cell(reg: Registry, cell_name: str, seed: int, seconds: float, trace: bo
     # one thread launching kernels is the bottleneck)
     result["host"] = {"own_cpu_per_s": (own1 - own0) / max(rec.window_s, 1e-9)}
     result["check_detail"] = detail
-    result["checks"] = {k: {"value": found.get(k), "limit": reg.limits(cell_name).get(k)}
-                        for k in check.NUMBERS}
+    result["checks"] = {k: {"value": found.get(k), "limit": limits.get(k)}
+                        for k in check.compared(numbers, limits)}
     result["_lines"] = lines
     return result
 

@@ -129,3 +129,14 @@ class HairFastConfig:
 
 
 DEFAULT_CONFIG = HairFastConfig()
+
+
+def reference_config(conf, where=None) -> HairFastConfig:
+    """A configuration file's HairFastConfig, as the reference reads it: the
+    shapes of its zoo (found under the bench folder `where`, by default
+    portbench/), with its `hairfast` settings."""
+    from portbench import weights
+    from portbench.registry import HERE
+
+    return dataclasses.replace(weights.shape_config(conf["weights"], where or HERE),
+                               **conf.get("hairfast", {}))

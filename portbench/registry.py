@@ -8,6 +8,20 @@ never an edit:
   portbench/traffic/<t>.json    a traffic mix: data, whose `kind` names its loop
   portbench/loops/<kind>.py     the loop that drives the program with a mix of
                                 that kind (portbench/load.py says what it holds)
+  portbench/zoos/<z>.py         a configuration's `"weights"` `"zoo"`: `shapes()`
+                                gives the weights' shape tree and its
+                                HairFastConfig (portbench/reference/zoo.py)
+  portbench/laws/<l>.py         a law the configuration's `"weights"` `"laws"`
+                                name: `law(path, shape)` (portbench/weights.py)
+  portbench/programs/<p>.py     what a configuration's `"program"` names (default
+                                "hairfast"): `build(conf, seed, device)` returns
+                                the object that the traffic's loop drives, and
+                                `flops(conf)` counts the configuration's
+                                "flops_per_transfer" (portbench/flops.py)
+  portbench/checks/<kind>.py    the kind of comparison a configuration's
+                                `"check"` names (default "images"): its compared
+                                `NUMBERS` and `compare(conf, seed, device,
+                                samples, control)` (portbench/check.py)
   portbench/limits/<cell>.json  the limits of the numbers that decide `correct`
   portbench/spans/<s>.json      a span the traced run wraps around a call
   portbench/metrics/<f>.py      the reader of every metric whose name starts
@@ -26,6 +40,29 @@ from typing import Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_PROGRAM = "hairfast"
+DEFAULT_CHECK = "images"
+_PARTS = {}
+
+
+def load_part(kind: str, name: str, where: Path = HERE):
+    """<where>/<kind>/<name>.py, loaded from its file once per process. A
+    part that finds other parts passes its own bench folder as `where`
+    (part_root), so that a copied folder uses its own parts throughout."""
+    path = Path(where).resolve() / kind / f"{name}.py"
+    if path not in _PARTS:
+        if not path.is_file():
+            raise KeyError(f"no {kind} file {path}")
+        spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _PARTS[path] = mod
+    return _PARTS[path]
+
+
+def part_root(part_file: str) -> Path:
+    """The bench folder that holds the part file `part_file` (its __file__)."""
+    return Path(part_file).resolve().parents[1]
 
 
 class Registry:
@@ -35,7 +72,6 @@ class Registry:
     def __init__(self, benchmark: Dict, bench_dir: Path = HERE):
         self.benchmark = benchmark
         self.dir = Path(bench_dir)
-        self._modules = {}
 
     @classmethod
     def load(cls, root: Path = ROOT, bench_dir: Path = HERE) -> "Registry":
@@ -63,22 +99,17 @@ class Registry:
         path = self.dir / "limits" / f"{cell}.json"
         return json.loads(path.read_text())["limits"] if path.is_file() else {}
 
-    def _module(self, kind: str, name: str):
-        """portbench/<kind>/<name>.py, loaded from its file."""
-        key = (kind, name)
-        if key not in self._modules:
-            path = self.dir / kind / f"{name}.py"
-            if not path.is_file():
-                raise KeyError(f"no {kind} file {path}")
-            spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            self._modules[key] = mod
-        return self._modules[key]
+    def program(self, conf: Dict):
+        """The module of the configuration's program (programs/<name>.py)."""
+        return load_part("programs", conf.get("program", DEFAULT_PROGRAM), self.dir)
+
+    def check(self, conf: Dict):
+        """The module of the configuration's kind of comparison (checks/<kind>.py)."""
+        return load_part("checks", conf.get("check", DEFAULT_CHECK), self.dir)
 
     def loop(self, traffic: Dict, hf, seed: int, device):
         """The loop of the traffic mix's kind (loops/<kind>.py), on `hf`."""
-        return self._module("loops", traffic["kind"]).Loop(traffic, hf, seed, device)
+        return load_part("loops", traffic["kind"], self.dir).Loop(traffic, hf, seed, device)
 
     def spans(self, metrics: List[str]) -> List[Dict]:
         """The span files that the readers of `metrics` name."""
@@ -107,7 +138,7 @@ class Registry:
 
     def reader(self, metric: str):
         """The module that reads `metric`: metrics/<name before the dot>.py."""
-        return self._module("metrics", metric.split(".")[0])
+        return load_part("metrics", metric.split(".")[0], self.dir)
 
     def read(self, metric: str, run) -> Optional[float]:
         """The metric's value in `run` (a harness.RunRecord), or None where

@@ -11,7 +11,8 @@ from pathlib import Path
 
 from portbench.registry import HERE, ROOT, Registry
 
-PARTS = ("configs", "traffic", "loops", "metrics", "spans", "limits")
+PARTS = ("configs", "traffic", "loops", "programs", "checks", "zoos", "laws", "metrics",
+         "spans", "limits")
 MICRO_CONFIG = {
     "name": "micro", "source": "portbench tests", "reduced": [],
     "weights": {"zoo": "micro", "dtype": "float32",

@@ -10,12 +10,16 @@ import pytest
 import torch
 
 from portbench import check, load, precision, weights
-from portbench.registry import HERE
+from portbench.reference.config import reference_config
+from portbench.registry import HERE, load_part
 from portbench.tests.micro import MICRO_CONFIG, MICRO_LIMITS
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "hairfastgan_tpu", "hairfastgan_torch"}
-YARDSTICK = ["check.py", "weights.py", "precision.py", "flops.py", "peaks.py", "load.py"] + [
-    str(p.relative_to(HERE)) for p in (HERE / "reference").rglob("*.py")]
+YARDSTICK = ["check.py", "weights.py", "precision.py", "flops.py", "peaks.py", "load.py",
+             "registry.py"] + [str(p.relative_to(HERE)) for part in ("reference", "zoos", "laws",
+                                                                     "checks")
+                               for p in (HERE / part).rglob("*.py")]
+IMAGES = load_part("checks", "images")
 
 
 @pytest.mark.parametrize("rel", YARDSTICK)
@@ -41,13 +45,12 @@ def _port(zoo, imgs, dtype):
     from hairfastgan_torch.pipeline.swap import hair_fast
     from hairfastgan_torch.zoo import cast_zoo
 
-    from portbench.harness import program_config
-
+    program_config = load_part("programs", "hairfast").program_config
     with torch.inference_mode():
         z = cast_zoo(zoo, dtype) if dtype != torch.float32 else zoo
         out = hair_fast(z, *imgs, cfg=program_config(MICRO_CONFIG), dtype=dtype,
                         generator=torch.Generator().manual_seed(5))
-    return check.served_u8(out, None).numpy()
+    return IMAGES.served_u8(out, None).numpy()
 
 
 def _ref(zoo, imgs, mode=None, dtype=torch.float32):
@@ -55,24 +58,25 @@ def _ref(zoo, imgs, mode=None, dtype=torch.float32):
 
     z = weights.map_tree(zoo, lambda _, t: t.to(dtype))
     with torch.no_grad(), (mode or contextlib.nullcontext()):
-        out = hair_fast(z, *imgs, cfg=check.reference_config(MICRO_CONFIG), dtype=dtype)
-    return check.served_u8(out, None).numpy()
+        out = hair_fast(z, *imgs, cfg=reference_config(MICRO_CONFIG), dtype=dtype)
+    return IMAGES.served_u8(out, None).numpy()
 
 
 def test_reference_equals_port_in_float32(micro):
     zoo, (imgs, _) = micro
-    assert check.mad(_port(zoo, imgs, torch.float32), _ref(zoo, imgs)) == 0.0
+    assert IMAGES.mad(_port(zoo, imgs, torch.float32), _ref(zoo, imgs)) == 0.0
 
 
 def test_bf16_passes_where_the_control_fails(micro):
     zoo, (imgs, other) = micro
     ref = _ref(zoo, imgs)
-    d_r = check.mad(_ref(zoo, imgs, dtype=torch.bfloat16), ref)
-    d_x = check.apart([ref, _ref(zoo, other)])
+    d_r = IMAGES.mad(_ref(zoo, imgs, dtype=torch.bfloat16), ref)
+    d_x = IMAGES.apart([ref, _ref(zoo, other)])
 
     def passes(out):
-        e = check.excess(check.mad(out, ref), d_r, d_x)  # one row: the mean is the worst row
-        return check.verdict({"mad_excess": e, "row_excess_max": e}, MICRO_LIMITS)[0]
+        e = IMAGES.excess(IMAGES.mad(out, ref), d_r, d_x)  # one row: the mean is the worst row
+        return check.verdict({"mad_excess": e, "row_excess_max": e}, MICRO_LIMITS,
+                             IMAGES.NUMBERS)[0]
 
     assert passes(_port(zoo, imgs, torch.bfloat16))
     assert not passes(_ref(zoo, imgs, precision.Fp8()))

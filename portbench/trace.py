@@ -3,10 +3,9 @@
 Spans: each portbench/spans/<name>.json names callables of the program
 (`"targets": ["module:attr[.attr]", ...]`) that the traced run wraps for its
 length, all under the span's name.
-A wrapped call is a `torch.profiler.record_function("pb.<name>")` range, is
-timed by the host clock, and with `"cuda_events": true` also by CUDA events
-on the current stream; with `"args": true` the shapes, item sizes and ints
-of its positional arguments are kept. A target that the program no longer
+A wrapped call is a `torch.profiler.record_function("pb.<name>")` range and
+is timed by the host clock; with `"args": true` the shapes, item sizes and
+ints of its positional arguments are kept. A target that the program no longer
 has is skipped, and the metrics that read its span read nothing.
 
 Profile: `torch.profiler` (CPU and CUDA activities) over a short sub-window
@@ -34,10 +33,8 @@ class Call:
     transfer: int
     t0: float
     t1: float = 0.0
-    ev: Optional[Tuple] = None
     args: Optional[list] = None
     profiled: bool = False
-    device_ms: Optional[float] = None
 
 
 @dataclass
@@ -68,16 +65,6 @@ class Profile:
     def busy_ns(self) -> int:
         return sum(e - s for s, e in self.busy_intervals())
 
-    def launched_in(self, span: str):
-        """The kernels whose launch lies in a host range `pb.<span>`."""
-        rs = sorted((s, e) for n, s, e in self.ranges if n == "pb." + span)
-        out = []
-        for op in self.kernels():
-            t = self.launches.get(op[4])
-            if t is not None and any(s <= t <= e for s, e in rs):
-                out.append(op)
-        return out
-
 
 class Tracer:
     def __init__(self, spans: List[Dict], device: torch.device):
@@ -96,9 +83,7 @@ class Tracer:
     # -- spans -------------------------------------------------------------
 
     def _wrap(self, fn, spec):
-        name, use_events, keep_args = spec["name"], spec.get("cuda_events", False), \
-            spec.get("args", False)
-        cuda = self.device.type == "cuda"
+        name, keep_args = spec["name"], spec.get("args", False)
 
         @functools.wraps(fn)
         def call(*a, **k):
@@ -106,13 +91,8 @@ class Tracer:
             if keep_args:
                 c.args = [(tuple(x.shape), x.element_size()) if isinstance(x, torch.Tensor)
                           else x for x in a] + [v for v in k.values() if isinstance(v, int)]
-            if use_events and cuda:
-                c.ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                c.ev[0].record()
             with torch.profiler.record_function("pb." + name):
                 out = fn(*a, **k)
-            if c.ev is not None:
-                c.ev[1].record()
             c.t1 = time.perf_counter()
             self.calls.append(c)
             return out
@@ -139,13 +119,6 @@ class Tracer:
         for obj, last, fn in reversed(self.installed):
             setattr(obj, last, fn)
         self.installed = []
-
-    def resolve(self) -> None:
-        """Read the CUDA events' times (after the device has finished)."""
-        for c in self.calls:
-            if c.ev is not None:
-                c.device_ms = c.ev[0].elapsed_time(c.ev[1])
-                c.ev = None
 
     # -- the profiled sub-window -----------------------------------------
 
